@@ -1,0 +1,69 @@
+"""Architecture registry + reduced smoke-test variants (the serving slice
+of the port carries llama3-8b; further architectures arrive with the
+model kinds they need).
+
+``get_config(arch_id)`` returns the exact published configuration;
+``smoke_config(arch_id)`` returns a reduced config of the same family
+(small width, few layers/experts, tiny vocab) for CPU smoke tests — the
+full configs are exercised only through the dry-run (ShapeDtypeStruct, no
+allocation)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import llama3_8b
+from repro_torch.configs.base import ModelConfig
+
+ARCHS = {
+    "llama3-8b": llama3_8b.CONFIG,
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    cfg = ARCHS[arch]
+    cfg.validate()
+    return cfg
+
+
+def smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config: one or two super-blocks, small dims."""
+    cfg = get_config(arch)
+    per = len(cfg.block_pattern)
+    repl = dict(
+        name=cfg.name + "-smoke",
+        n_layers=per + len(cfg.extra_blocks),
+        d_model=64,
+        n_heads=4 if cfg.n_heads else 0,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
+        head_dim=16 if cfg.n_heads else 1,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=512,
+        q_block=32, kv_block=32,
+        remat=False,
+    )
+    if cfg.n_experts:
+        # capacity_factor = E guarantees zero token drops, so the smoke
+        # prefill/decode consistency check is exact (capacity dropping is a
+        # train-time approximation, not a correctness bug)
+        repl.update(n_experts=4, top_k=2,
+                    moe_d_ff=64 if cfg.moe_d_ff else 0,
+                    n_shared_experts=min(cfg.n_shared_experts, 1),
+                    capacity_factor=4.0)
+    if cfg.ssm_heads:
+        repl.update(ssm_heads=4, ssm_head_dim=16, ssm_state=16, ssd_chunk=16)
+    if cfg.rglru_width:
+        repl.update(rglru_width=64)
+    if cfg.enc_layers:
+        repl.update(enc_layers=1)
+    if cfg.frontend_tokens:
+        repl.update(frontend_tokens=24)
+    if cfg.window:
+        repl.update(window=16)
+    if cfg.local_window:
+        repl.update(local_window=16)
+    out = dataclasses.replace(cfg, **repl)
+    out.validate()
+    return out

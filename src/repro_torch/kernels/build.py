@@ -1,0 +1,97 @@
+"""Build the hand-written CUDA kernels and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on
+first use, from the repo's sources only, by ``nvcc`` for ``sm_90a`` into
+``kernels/_build/`` (listed in ``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/lib<name>-<digest>.so csrc/<name>.cu
+
+The library name carries a digest of the source, so an edited kernel is
+rebuilt and a built one is reused within a checkout.  :func:`build_all`
+starts one ``nvcc`` per source, all at once, and waits for them together.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, List
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+LOGS: Dict[str, str] = {}           # name -> nvcc output of its last build
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _paths(name: str):
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_all(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named source not built yet, in parallel; returns the
+    wall seconds of each build that ran.  Raises with nvcc's output when a
+    build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs: List = []
+    for name in names:
+        src, lib = _paths(name)
+        if os.path.exists(lib):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc()] + NVCC_FLAGS + ["-o", tmp, src]
+        procs.append((name, lib, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    done: Dict[str, float] = {}
+    failed = []
+    for name, lib, tmp, t0, p in procs:
+        out, _ = p.communicate()
+        LOGS[name] = out
+        if p.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+        done[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return done
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _LIBS[name] = ctypes.CDLL(_paths(name)[1])
+    return lib

@@ -1,0 +1,104 @@
+"""Paged-attention decode: the wrapper of the Hopper kernel (DESIGN.md §12).
+
+Single-token decode over a paged KV cache: K/V live in a flat arena of
+``[num_blocks, bs, Hkv, D]`` fixed-size blocks and each batch row owns a
+block table ``bt[b, j] -> arena block id``.  The kernel
+(``csrc/paged_attention.cu``, CUDA C++ for ``sm_90a``) replaces the TPU
+kernel ``src/repro/kernels/paged_attention.py:_paged_kernel``: one CTA per
+(KV head, row) reads the row's table itself and streams only the blocks
+that hold valid positions through an f32 online softmax.  Rows shorter
+than ``nbps`` blocks point their tail table entries at the trash block 0;
+those positions are masked and never read.
+
+The wrapper checks device, dtype, shapes and contiguity and raises on
+anything the kernel does not take.  A CUDA tensor launches the kernel (or
+raises); a CPU tensor runs the plain version (``ref.ref_paged_attention``),
+because a CPU tensor means the caller asked for the CPU.  There is no
+fallback from the one to the other.  ``paged_attention.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import ref_paged_attention
+
+NAME = "paged_attention"
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 48 * 1024             # default dynamic shared memory per CTA
+
+
+def _entry():
+    from repro_torch.kernels.build import library
+    fn = library(NAME).repro_paged_attention
+    if fn.argtypes is None:
+        # every pointer and the stream as c_void_p: a bare Python int
+        # would be passed as a 32-bit int and cut the pointer
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, kp, vp, bt, valid, window):
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, Hq, D], got {tuple(q.shape)}")
+    if kp.dim() != 4 or kp.shape != vp.shape:
+        raise ValueError("kp/vp must both be [num_blocks, bs, Hkv, D]")
+    B, _, Hq, D = q.shape
+    if kp.shape[3] != D:
+        raise ValueError(f"head dim mismatch: q {D}, kv {kp.shape[3]}")
+    Hkv = kp.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0 ({Hq}, {Hkv})")
+    if bt.dim() != 2 or bt.shape[0] != B or valid.shape != (B,):
+        raise ValueError("bt must be [B, nbps] and valid [B]")
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    return B, Hq, Hkv, D, kp.shape[1], bt.shape[1]
+
+
+def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
+    """q: [B,1,Hq,D]; kp/vp: [num_blocks,bs,Hkv,D]; bt: [B,nbps] int;
+    valid: [B] int valid lengths.  Returns [B,1,Hq,D] in q's dtype."""
+    B, Hq, Hkv, D, bs, nbps = _check(q, kp, vp, bt, valid, window)
+    devs = {t.device for t in (q, kp, vp, bt, valid)}
+    if len(devs) != 1:
+        raise ValueError(f"paged_attention inputs span devices {devs}")
+    if q.device.type == "cpu":
+        return ref_paged_attention(q, kp, vp, bt, valid, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_attention kernel for {q.device}")
+    if q.dtype not in _DTYPES or kp.dtype != q.dtype or vp.dtype != q.dtype:
+        raise TypeError(f"paged_attention takes float32 or bfloat16 q/kp/vp "
+                        f"of one dtype, got {q.dtype}/{kp.dtype}/{vp.dtype}")
+    G = Hq // Hkv
+    if D not in HEAD_DIMS or G not in GROUPS:
+        raise ValueError(f"paged_attention kernel takes D in {HEAD_DIMS} "
+                         f"and Hq/Hkv in {GROUPS}, got D={D}, G={G}")
+    if 4 * (2 * G * D + G * bs) > _SMEM_LIMIT:
+        raise ValueError(f"block size {bs} needs more shared memory than "
+                         f"the kernel's {_SMEM_LIMIT} bytes")
+    if not (q.is_contiguous() and kp.is_contiguous()
+            and vp.is_contiguous()):
+        raise ValueError("paged_attention needs contiguous q, kp and vp")
+    bt = bt.to(torch.int32).contiguous()
+    valid = valid.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = _entry()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                   bt.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                   B, Hkv, G, D, bs, nbps, int(window), _DTYPES[q.dtype],
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,224 @@
+"""Transformer assembly for the decoder-only attention family.
+
+The model is a stack of *super-blocks*: each applies the config's
+``block_pattern`` once.  Parameters keep the reference's stacked layout —
+nested dicts with a leading ``n_pattern_blocks`` axis per pattern slot —
+so the flat leaf order (and the serving pool's Variables) match it leaf
+for leaf.  The reference scans over that axis with ``jax.lax.scan``; here
+a Python loop indexes it.
+
+This slice carries the ``attn`` block kind (llama-family).  MoE, SSD,
+RG-LRU, cross-attention and encoder blocks raise ``NotImplementedError``
+until their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.core.pytree import tree_map
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attention_block
+
+ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
+PORTED_KINDS = ("attn", "attn_swa", "attn_local")
+
+
+def _check_kinds(cfg) -> None:
+    kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
+    bad = [k for k in kinds if k not in PORTED_KINDS]
+    if bad or cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {bad or ['encoder']} arrive in a "
+            f"later slice of the port (this slice carries {PORTED_KINDS})")
+
+
+# ==========================================================================
+# Parameter initialization (per block kind)
+# ==========================================================================
+
+def _dt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _attn_params(cfg, gen, stack):
+    d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = _dt(cfg)
+    p = {
+        "wq": L.he_init(gen, (d, H * D), dt, stack),
+        "wk": L.he_init(gen, (d, Hkv * D), dt, stack),
+        "wv": L.he_init(gen, (d, Hkv * D), dt, stack),
+        "wo": L.he_init(gen, (H * D, d), dt, stack),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * D), ("bk", Hkv * D), ("bv", Hkv * D)):
+            p[name] = torch.zeros(tuple(stack) + (n,), dtype=dt,
+                                  device=gen.device)
+    return p
+
+
+def _mlp_params(cfg, gen, stack):
+    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+    return {
+        "w_gate": L.he_init(gen, (d, f), dt, stack),
+        "w_up": L.he_init(gen, (d, f), dt, stack),
+        "w_down": L.he_init(gen, (f, d), dt, stack),
+    }
+
+
+def _norm_params(cfg, device, stack=()):
+    shp = tuple(stack) + (cfg.d_model,)
+    dt = _dt(cfg)
+    if cfg.norm == "ln":
+        return {"scale": torch.ones(shp, dtype=dt, device=device),
+                "bias": torch.zeros(shp, dtype=dt, device=device)}
+    return {"scale": torch.zeros(shp, dtype=dt, device=device)}
+
+
+def _block_params(cfg, gen, kind: str, stack=()):
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} arrives in a later "
+                                  f"slice of the port")
+    return {"norm1": _norm_params(cfg, gen.device, stack),
+            "attn": _attn_params(cfg, gen, stack),
+            "norm2": _norm_params(cfg, gen.device, stack),
+            "mlp": _mlp_params(cfg, gen, stack)}
+
+
+def init_params(cfg: ModelConfig, generator=None, *, device=None
+                ) -> Dict[str, Any]:
+    """Random parameters in the reference's nesting and leaf order, made
+    on ``device`` (default: the CUDA card) from ``generator`` (default: a
+    generator on that device seeded with 0)."""
+    cfg.validate()
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    elif generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params "
+                         f"requested on {dev}")
+    nb = cfg.n_pattern_blocks
+    dt = _dt(cfg)
+    params: Dict[str, Any] = {
+        "embed": L.trunc_normal(generator, (cfg.vocab, cfg.d_model), dt,
+                                cfg.d_model ** -0.5),
+        "final_norm": _norm_params(cfg, generator.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.trunc_normal(
+            generator, (cfg.vocab, cfg.d_model), dt, cfg.d_model ** -0.5)
+    params["blocks"] = [_block_params(cfg, generator, kind, (nb,))
+                        for kind in cfg.block_pattern]
+    params["extra"] = [_block_params(cfg, generator, k)
+                       for k in cfg.extra_blocks]
+    return params
+
+
+# ==========================================================================
+# Forward
+# ==========================================================================
+
+def _norm(cfg, p, x):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, p["scale"], p["bias"])
+    return L.rms_norm(x, p["scale"])
+
+
+def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
+                  cache_len=None, cache_bt=None, causal=True):
+    """One block of kind ``kind``.  Returns (x, new_cache).
+
+    Attention caches are stored per layer as {"k","v"} (dense rows) or
+    {"kp","vp"} (paged block arenas); the shared fill length — and, for
+    paged caches, the shared block table ``cache_bt`` — is threaded
+    separately so layer caches can be stacked.
+    """
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} arrives in a later "
+                                  f"slice of the port")
+    c = None
+    if cache is not None:
+        c = {**cache, "len": cache_len}
+        if cache_bt is not None and "kp" in c:
+            c["bt"] = cache_bt
+    window = {"attn_swa": cfg.window,
+              "attn_local": cfg.local_window}.get(kind, 0)
+    h, new_cache = attention_block(
+        p["attn"], _norm(cfg, p["norm1"], x), cfg, positions=positions,
+        cache=c, causal=causal, window=window)
+    if new_cache is not None:
+        new_cache = {k: v for k, v in new_cache.items()
+                     if k not in ("len", "bt")}
+    x = x + h
+    x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
+    return x, new_cache
+
+
+def _superblock(cfg, slot_params, x, *, positions, caches=None,
+                cache_len=None, cache_bt=None):
+    """Apply one instance of the block pattern.  slot_params/caches are
+    per-slot lists (already sliced to this super-block)."""
+    new_caches = []
+    for slot, kind in enumerate(cfg.block_pattern):
+        c = caches[slot] if caches is not None else None
+        x, nc = block_forward(cfg, kind, slot_params[slot], x,
+                              positions=positions, cache=c,
+                              cache_len=cache_len, cache_bt=cache_bt)
+        new_caches.append(nc)
+    return x, new_caches
+
+
+def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
+    """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
+    per-layer cache outputs are re-stacked along the leading axis."""
+    if cross_states is not None:
+        raise NotImplementedError(
+            "cross-attention arrives with the port's VLM/audio families")
+    cache_len = caches["len"] if caches is not None else None
+    cache_bt = caches.get("bt") if caches is not None else None
+    scanned = (caches["layers"] if caches is not None
+               else [None] * len(cfg.block_pattern))
+    ys = []
+    for i in range(cfg.n_pattern_blocks):
+        slot_params, slot_caches = tree_map(lambda a: a[i],
+                                            (params["blocks"], scanned))
+        x, y = _superblock(cfg, slot_params, x, positions=positions,
+                           caches=slot_caches, cache_len=cache_len,
+                           cache_bt=cache_bt)
+        ys.append(y)
+    new_layer_caches = (tree_map(lambda *zs: torch.stack(zs), *ys)
+                        if caches is not None else None)
+
+    new_extra = []
+    for i, kind in enumerate(cfg.extra_blocks):
+        c = caches["extra"][i] if caches is not None else None
+        x, nc = block_forward(cfg, kind, params["extra"][i], x,
+                              positions=positions, cache=c,
+                              cache_len=cache_len, cache_bt=cache_bt)
+        new_extra.append(nc)
+
+    new_caches = None
+    if caches is not None:
+        new_caches = {"layers": new_layer_caches, "extra": new_extra,
+                      "len": cache_len + x.shape[1]}
+    return x, new_caches
+
+
+def forward(cfg: ModelConfig, params, tokens, *, cross_states=None,
+            frontend_embeds=None):
+    """Eval forward: tokens [B, S] -> logits [B, S, vocab]."""
+    if cross_states is not None or frontend_embeds is not None:
+        raise NotImplementedError(
+            "cross-attention and encoder inputs arrive with the port's "
+            "VLM/audio families")
+    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    positions = torch.arange(tokens.shape[1], device=x.device)[None]
+    x, _ = run_stack(cfg, params, x, positions=positions)
+    x = _norm(cfg, params["final_norm"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.unembed(x, head)

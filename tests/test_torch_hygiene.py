@@ -1,0 +1,139 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points never pick the CPU on their own."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)")
+
+
+def _port_files():
+    out = []
+    for dirpath, _, names in os.walk(PORT):
+        out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(out) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _modules():
+    mods = []
+    for path in _port_files()[:-1]:
+        rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
+        parts = rel.split(os.sep)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_no_source_line_imports_jax_or_the_reference():
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if IMPORT_RE.match(line):
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{i}: "
+                               f"{line.strip()}")
+    assert not bad, "\n".join(bad)
+
+
+def test_executor_passes_scheduler_events_kernels_modules_stay_small():
+    """The reference's decomposition contract (tests/test_executor.py),
+    held for the port's counterparts."""
+    for pkg in ("core/executor", "core/passes", "serve/scheduler",
+                "core/events", "kernels"):
+        pkg_dir = os.path.join(PORT, pkg)
+        for name in os.listdir(pkg_dir):
+            if name.endswith(".py"):
+                with open(os.path.join(pkg_dir, name)) as f:
+                    n = sum(1 for _ in f)
+                assert n <= 360, f"{pkg}/{name} has {n} lines"
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
+        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LOADED', len(sys.modules))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED" in out.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import function, imperative, ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    def body(x):
+        return ops.reduce_sum(x)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        function(body)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with imperative():
+            pass
+    cfg = smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingScheduler(cfg, params, max_slots=2, max_len=32)
+    # asked for explicitly, the CPU works
+    step = function(body, device="cpu")
+    assert float(step(np.ones(3, np.float32))) == 3.0
+    step.close()
+    s = ContinuousBatchingScheduler(cfg, params, max_slots=2, max_len=32,
+                                    device="cpu")
+    s.close()
+
+
+def test_kernel_wrappers_never_fall_back_for_device_tensors():
+    """A non-CPU tensor reaching a kernel wrapper launches its kernel or
+    raises; the plain version runs only for CPU tensors."""
+    from repro_torch.kernels import ops as kops
+    x = torch.zeros(2, 4, device="meta")
+    with pytest.raises(NotImplementedError):
+        kops.rmsnorm(x, torch.zeros(4, device="meta"))
+    q = torch.zeros(1, 1, 2, 16, device="meta")
+    kv = torch.zeros(3, 4, 2, 16, device="meta")
+    bt = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    vl = torch.ones(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kops.paged_attention(q, kv, kv, bt, vl)
+
+
+def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        lone.write_text(f.read())
+    out = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
