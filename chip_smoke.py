@@ -6,23 +6,35 @@
 
 Phases, in order; any failure exits non-zero and prints no result:
 
-1. build   — compile every hand-written kernel of the serving path from
-             this checkout's sources (nvcc, sm_90a) and print the card.
-2. kernels — each kernel against its plain PyTorch version on the card,
-             over a sweep of shapes and at the serving path's own shape,
-             with its time beside the plain version's, a PyTorch library
-             call's and the least time the card could take (the bound).
-3. serving — llama3-8b at its published width and depth (random bf16
-             weights from a seed) served by the co-executed paged
-             continuous-batching scheduler with the ``kernels`` pass: 12
-             requests through 8 slots.  Launch counters are zeroed just
-             before and read just after, and must show the kernel ran.
-4. tokens  — full width, 4 layers, float32 (TF32 off for matmuls and
-             cuDNN): greedy tokens with the kernel, with the gather path
-             and with ``use_terra=False`` must be equal.
-5. profile — only with ``--profile``: steady-state decode time per step,
-             kernel path against gather path in turns, and a
-             torch.profiler window (device time by kernel, busy share).
+1. build    — compile every hand-written kernel (paged attention, rmsnorm,
+              flash attention) from this checkout's sources (one nvcc per
+              source, all at once, sm_90a) and print the card.
+2. kernels  — each kernel against its plain PyTorch version on the card,
+              over a sweep of shapes and at its main path's own shape,
+              with its time beside the plain version's, a PyTorch library
+              call's and the least time the card could take (the bound).
+3. serving  — llama3-8b at its published width and depth (random bf16
+              weights from a seed) served by the co-executed paged
+              continuous-batching scheduler with the ``kernels`` pass: 12
+              requests through 8 slots.  Launch counters are zeroed just
+              before and read just after, and must show the kernel ran.
+4. tokens   — full width, 4 layers, float32 (TF32 off for matmuls and
+              cuDNN): greedy tokens with the kernel, with the gather path
+              and with ``use_terra=False`` must be equal.
+5. coexec-kernels — llama3-8b at full width and depth (bf16) scoring
+              4 x 512 tokens per call with the imperative op-layer program
+              ``llama_score_program`` through ``repro_torch.core.function``
+              and its default ``optimize="all"``: every rms_norm runs the
+              rmsnorm kernel and every attention chain the flash-attention
+              kernel, 65 and 32 launches per compiled call (counters zeroed
+              just before, read just after).  Then the unfused program
+              (``optimize="safe"``) and the kernel one in turns.
+6. coexec-equality — full width, 4 layers, float32 (TF32 off): the kernel
+              program's scores equal the unfused program's within 1e-4.
+7. profile  — only with ``--profile``: steady-state decode time per step,
+              kernel path against gather path in turns, and a
+              torch.profiler window (device time by kernel, busy share);
+              phase 5 then also profiles two calls of each scoring program.
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -82,6 +94,23 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn()``: the summed device
+    time of the kernels it launched, from a torch.profiler window.  For
+    work shorter than its own launch, where back-to-back CUDA-event timing
+    measures the host's launch rate instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / 1e3 / iters
+
+
 def rotating(fns):
     """One callable that calls ``fns`` in turn."""
     state = [0]
@@ -91,6 +120,16 @@ def rotating(fns):
         state[0] += 1
         return fn()
     return call
+
+
+def release():
+    """Free the device memory a finished phase held: a closed engine sits
+    in reference cycles (with the parameters its variables hold) until
+    the cyclic collector runs."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi_line() -> str:
@@ -103,7 +142,135 @@ def nvidia_smi_line() -> str:
 
 
 # --------------------------------------------------------------------------
-# phase 2: the paged-attention kernel against its plain version
+# the imperative llama3-8b scoring program (phases 5 and 6)
+# --------------------------------------------------------------------------
+
+def llama_score_program(core, cfg, params, batch, seq, **function_kw):
+    """An imperative program that scores token sequences with a llama
+    model, written against a package's op layer: ``core`` is
+    ``repro_torch.core`` or the JAX package's ``repro.core`` (the CPU
+    tests run this same text through both).  ``params`` is
+    ``models.model.init_params``'s stacked layout in that package's
+    arrays.  Returns ``core.function(step, **function_kw)``, where
+    ``step(tokens)`` takes int32 ``[batch, seq]`` tokens and returns
+    ``(scores, order, last_logits)``: the per-sequence mean next-token
+    log-likelihood (numpy), the sequences ranked best first by numpy, and
+    the logits after each sequence's last token ([batch, vocab], not
+    materialised).
+
+    The per-layer leaves become ``Variable``s of ``leaf[i]`` before the
+    function is made: views of the stacked tensors in the port (no extra
+    device memory), copies in the JAX package.  RoPE's cos/sin tables are
+    numpy feeds.  The causal bias ``(tril - 1) * 1e9`` is built in the
+    graph from a feed of the S positions, which the ``fold`` pass bakes
+    (an [S, S] mask feed would exceed its 64 KB limit at real lengths), so
+    the pass can evaluate the bias; the attention chain is spelled as
+    ``kernel_sub`` matches it, so under the ``kernels`` pass each layer's
+    attention becomes ``kernel.attention`` and each ``rms_norm`` (2 per
+    layer and a final one) ``kernel.rms_norm``.
+    """
+    import numpy as np
+    ops, Variable = core.ops, core.Variable
+    B, S = batch, seq
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    half, dt = D // 2, cfg.dtype
+    # models/layers.py:rope's tables, [S, 1, D/2] in float32
+    freqs = np.float32(1.0) / (np.float32(cfg.rope_theta) ** (
+        np.arange(half, dtype=np.float32) / np.float32(half)))
+    ang = np.arange(S, dtype=np.float32)[:, None] * freqs[None, :]
+    cos_tab, sin_tab = np.cos(ang)[:, None, :], np.sin(ang)[:, None, :]
+    pos = np.arange(S, dtype=np.float32)
+
+    blk = params["blocks"][0]             # the "attn" pattern slot, stacked
+    names = {"norm1": ("norm1", "scale"), "norm2": ("norm2", "scale"),
+             "wq": ("attn", "wq"), "wk": ("attn", "wk"),
+             "wv": ("attn", "wv"), "wo": ("attn", "wo"),
+             "w_gate": ("mlp", "w_gate"), "w_up": ("mlp", "w_up"),
+             "w_down": ("mlp", "w_down")}
+    layers = [{k: Variable(blk[a][b][i], f"layer{i}.{k}")
+               for k, (a, b) in names.items()}
+              for i in range(cfg.n_layers)]
+    embed = Variable(params["embed"], "embed")
+    final_norm = Variable(params["final_norm"]["scale"], "final_norm")
+    head = Variable(params["embed" if cfg.tie_embeddings else "lm_head"],
+                    "lm_head")
+
+    def norm(x, scale):
+        return ops.rms_norm(x, ops.add(1.0, scale), eps=1e-6)
+
+    def rope(x, cos, sin):                # x [B, S, n, D]
+        x1 = ops.getitem(x, idx=(Ellipsis, slice(0, half)))
+        x2 = ops.getitem(x, idx=(Ellipsis, slice(half, None)))
+        out = ops.concat(ops.sub(ops.mul(x1, cos), ops.mul(x2, sin)),
+                         ops.add(ops.mul(x2, cos), ops.mul(x1, sin)),
+                         axis=-1)
+        return ops.cast(out, dtype=dt)
+
+    def heads(x, n):                      # [B, S, n*D] -> [B, n, S, D]
+        return ops.transpose(ops.reshape(x, new_shape=(B, S, n, D)),
+                             axes=(0, 2, 1, 3))
+
+    def layer(p, x, cos, sin, bias):
+        h = norm(x, p["norm1"])
+        q = rope(ops.reshape(ops.matmul(h, p["wq"]), new_shape=(B, S, H, D)),
+                 cos, sin)
+        k = rope(ops.reshape(ops.matmul(h, p["wk"]),
+                             new_shape=(B, S, Hkv, D)), cos, sin)
+        q = ops.reshape(ops.transpose(q, axes=(0, 2, 1, 3)),
+                        new_shape=(B * H, S, D))
+        # K/V heads repeated to the query heads (GQA: head h reads KV head
+        # h // (H / Hkv)), heads folded into the batch axis
+        k = ops.transpose(k, axes=(0, 2, 1, 3))
+        v = heads(ops.matmul(h, p["wv"]), Hkv)
+        k, v = (ops.reshape(ops.stack_op(*[t] * (H // Hkv), axis=2),
+                            new_shape=(B * H, S, D)) for t in (k, v))
+        s = ops.einsum(q, k, expr="bsd,btd->bst")
+        s = ops.add(ops.mul(s, D ** -0.5), bias)
+        o = ops.einsum(ops.softmax(s, axis=-1), v, expr="bst,btd->bsd")
+        # the unfused chain comes out in float32 (f32 bias, f32 softmax),
+        # kernel.attention in q's dtype: one cast keeps both in dt
+        o = ops.cast(o, dtype=dt)
+        o = ops.reshape(ops.transpose(ops.reshape(o, new_shape=(B, H, S, D)),
+                                      axes=(0, 2, 1, 3)),
+                        new_shape=(B, S, H * D))
+        x = ops.add(x, ops.matmul(o, p["wo"]))
+        h = norm(x, p["norm2"])
+        m = ops.mul(ops.silu(ops.matmul(h, p["w_gate"])),
+                    ops.matmul(h, p["w_up"]))
+        return ops.add(x, ops.matmul(m, p["w_down"]))
+
+    def step(tokens):
+        tokens = np.asarray(tokens, np.int32)
+        # one line per op: a TraceGraph node is (op, attrs, program line,
+        # sources), and these two differ only in their feeds' values
+        cos = ops.identity(cos_tab)
+        sin = ops.identity(sin_tab)
+        tril = ops.cast(ops.greater_equal(ops.reshape(pos, new_shape=(S, 1)),
+                                          ops.reshape(pos, new_shape=(1, S))),
+                        dtype="float32")
+        bias = ops.mul(ops.sub(tril, 1.0), 1e9)        # causal (tril-1)*1e9
+        x = ops.cast(ops.embedding(embed, tokens), dtype=dt)
+        for p in layers:
+            x = layer(p, x, cos, sin, bias)
+        logits = ops.matmul(norm(x, final_norm), ops.transpose(head))
+        logp = ops.log_softmax(
+            ops.cast(ops.getitem(logits, idx=(slice(None), slice(0, S - 1))),
+                     dtype="float32"), axis=-1)
+        hit = ops.one_hot(np.ascontiguousarray(tokens[:, 1:]),
+                          depth=cfg.vocab, dtype="float32")
+        ll = ops.reduce_mean(ops.reduce_sum(ops.mul(logp, hit), axis=-1),
+                             axis=-1)
+        scores = np.asarray(ll.numpy(), np.float64)    # materialised
+        order = np.argsort(-scores, kind="stable")     # ranked by numpy
+        if not np.isfinite(scores).all():              # a Python branch on it
+            raise FloatingPointError(f"non-finite scores {scores}")
+        return scores, order, ops.getitem(logits, idx=(slice(None), -1))
+
+    return core.function(step, **function_kw)
+
+
+# --------------------------------------------------------------------------
+# phase 2: the kernels against their plain versions
 # --------------------------------------------------------------------------
 
 def paged_inputs(B, Hq, Hkv, D, bs, nbps, nblocks, valid, dtype, seed):
@@ -234,6 +401,180 @@ def phase_kernels():
             "library_ms": lib_ms}
 
 
+def launch_counters():
+    """Kernel name -> its wrapper, which carries the launch count."""
+    from repro_torch.kernels import ops as kops
+    return {"paged_attention": kops.paged_attention,
+            "rmsnorm": kops.rmsnorm,
+            "flash_attention": kops.flash_attention}
+
+
+def zero_counts():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def close_err(out, ref, tol):
+    """(max abs error, allclose at rtol = atol = tol) — the tolerance rule
+    of the reference's kernel tests."""
+    d = (out.float() - ref.float()).abs()
+    ok = bool((d <= tol + tol * ref.float().abs()).all())
+    return d.max().item(), ok
+
+
+def seeded(shape, dtype, seed, scale=1.0):
+    import numpy as np
+    import torch
+    a = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to("cuda", dtype)
+
+
+def rmsnorm_kernel_row(shape):
+    """rmsnorm against ref_rmsnorm over the tests/test_kernels.py:77 shapes,
+    a ragged row, a wide one, 4096 x 4096 and the main path's ``shape``;
+    timed at the path's shape in bf16 (rotating copies of x, together >
+    the L2) by device time, since one launch is shorter than its host
+    overhead."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ref_rmsnorm
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}
+    for shp in [(4, 128), (2, 16, 256), (64, 512), (3, 100), (2, 16384),
+                (4096, 4096), shape]:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x = seeded(shp, dtype, 2)
+            g = seeded(shp[-1:], dtype, 3, 0.1)
+            err, ok = close_err(kops.rmsnorm(x, g), ref_rmsnorm(x, g),
+                                tol[name])
+            torch.cuda.synchronize()
+            log(f"rmsnorm {shp} {name}: max_abs_err={err:.3e} "
+                f"(tol {tol[name]})")
+            check(ok, f"rmsnorm disagrees at {shp} {name}: err={err}")
+    d = shape[-1]
+    xs = [seeded(shape, torch.bfloat16, 10 + i) for i in range(8)]
+    g = seeded((d,), torch.bfloat16, 3, 0.1)
+    w = 1.0 + g                            # the library call's weight
+    calls = {"kernel": [lambda x=x: kops.rmsnorm(x, g) for x in xs],
+             "plain": [lambda x=x: ref_rmsnorm(x, g) for x in xs],
+             "F.rms_norm": [lambda x=x: F.rms_norm(x, (d,), weight=w,
+                                                   eps=1e-6) for x in xs]}
+    ms, plain_ms, lib_ms = (device_ms(rotating(v), 48)
+                            for v in calls.values())
+    nbytes = 2 * xs[0].numel() * 2 + d * 2  # x read, out written, g read
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                      4 * xs[0].numel() / PEAK_OPS_PER_S["bfloat16"])
+    log(f"rmsnorm bf16 {shape} device time: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} "
+        f"ms (bytes)")
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:16",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
+def attn_pairs(Sq, Skv, causal, window) -> int:
+    """Unmasked (query, key) pairs of one head: the work these inputs need."""
+    import numpy as np
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= kp > qp - window
+    return int(ok.sum())
+
+
+def attn_bound_ms(q, k, causal, window=0):
+    """q/k/v read once, the output written once; 4·D operations (QK and
+    PV) per unmasked pair, at the tensor-core peak of the inputs' type."""
+    B, H, Sq, D = q.shape
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
+    ops = 4 * D * B * H * attn_pairs(Sq, k.shape[2], causal, window)
+    dt = str(q.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+# tests/test_kernels.py:17-25 (ATTN_SWEEP) with the causal Sq != Skv case
+# its test skips, ragged lengths, and a window whose last rows reach no key
+ATTN_SWEEP = [
+    # (B, H, Hkv, Sq, Skv, D, causal, window)
+    (1, 4, 4, 128, 128, 64, True, 0),
+    (2, 8, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 128, 128, 128, True, 0),
+    (2, 4, 4, 128, 128, 64, False, 0),
+    (1, 4, 2, 256, 256, 64, True, 64),
+    (1, 2, 2, 64, 256, 64, False, 0),
+    (1, 2, 2, 64, 256, 64, True, 0),
+    (2, 2, 1, 100, 37, 32, False, 16),
+    (1, 2, 2, 77, 77, 16, True, 0),
+]
+
+
+def flash_kernel_row(bh, seq):
+    """flash_attention against ref_attention over ATTN_SWEEP and the main
+    path's shape (``bh`` heads of one (b, h) each, as kernel.attention
+    hands them over, ``seq`` tokens, D = 128, causal); timed there in bf16
+    over rotating copies of q/k/v, and once more at 1024 tokens."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ref_attention
+    path = (bh, 1, 1, seq, seq, 128, True, 0)
+    for case in ATTN_SWEEP + [path]:
+        B, H, Hkv, Sq, Skv, D, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            q = seeded((B, H, Sq, D), dtype, 0)
+            k = seeded((B, Hkv, Skv, D), dtype, 1)
+            v = seeded((B, Hkv, Skv, D), dtype, 2)
+            out = kops.flash_attention(q, k, v, causal=causal, window=window)
+            ref = ref_attention(q, k, v, causal=causal, window=window)
+            err, ok = close_err(out, ref, TOL[name])
+            torch.cuda.synchronize()
+            log(f"flash_attention {case} {name}: max_abs_err={err:.3e} "
+                f"(tol {TOL[name]})")
+            check(ok, f"flash_attention disagrees at {case} {name}: "
+                  f"err={err}")
+            del out, ref, q, k, v
+    row = None
+    for S in (seq, 1024):
+        qkv = [[seeded((bh, 1, S, 128), torch.bfloat16, 20 + 3 * i + j)
+                for j in range(3)] for i in range(4)]
+        ms = time_ms(rotating([lambda t=t: kops.flash_attention(*t)
+                               for t in qkv]), 20)
+        plain_ms = time_ms(rotating([lambda t=t: ref_attention(*t)
+                                     for t in qkv]), 5)
+        lib_ms = time_ms(rotating([
+            lambda t=t: F.scaled_dot_product_attention(*t, is_causal=True)
+            for t in qkv]), 20)
+        bound, by = attn_bound_ms(qkv[0][0], qkv[0][1], True)
+        log(f"flash_attention bf16 [{bh},1,{S},128] causal: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        if row is None:
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:26",
+                   "launches": None, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": lib_ms}
+        del qkv
+    release()
+    return row
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: serving through the port's entry points
 # --------------------------------------------------------------------------
@@ -259,7 +600,6 @@ KERNELS = ("cse", "kernels", "dce", "coalesce")
 def phase_serving(kernel_rows):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import model as M
     from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 
@@ -275,13 +615,14 @@ def phase_serving(kernel_rows):
     reqs = make_requests(cfg, 12, seed=0, prompt_lo=16, prompt_hi=256,
                          new_lo=32, new_hi=64)
     # counts of the main path only: zeroed just before it, read just after
-    PA.paged_attention.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sched.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = PA.paged_attention.launches
+    counts = read_counts()
+    launches = counts["paged_attention"]
     st = sched.stats
     sched.close()
 
@@ -314,9 +655,30 @@ def phase_serving(kernel_rows):
             "generated_tokens", "decode_steps", "prefill_steps",
             "donated_bytes")
     log("serving counters: " + json.dumps({k: st.get(k) for k in keys}))
+    log(f"serving launches: {json.dumps(counts)}")
     kernel_rows[0]["launches"] = launches
     del sched, params
-    torch.cuda.empty_cache()
+    release()
+
+
+def report_profile(prof, title, wall, path, show):
+    """Device time by kernel from a torch.profiler window and the device
+    busy share of ``wall`` seconds: the table goes to ``path``, its first
+    ``show`` lines to the log."""
+    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
+    evts.sort(key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in evts) / 1e6
+    lines = [f"{title}, wall {wall * 1e3:.1f} ms under the profiler; "
+             f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% "
+             f"of wall"]
+    for e in evts[:40]:
+        lines.append(f"{_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  "
+                     f"{e.key[:90]}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for line in lines[:show]:
+        log("profile: " + line)
 
 
 def _device_us(evt) -> float:
@@ -369,24 +731,12 @@ def phase_profile(out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, steps = batch(arms["kernel"], 102)
-    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
-    evts.sort(key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in evts) / 1e6
-    lines = [f"kernel path, {steps} decode steps + 1 prefill, wall "
-             f"{wall * 1e3:.1f} ms under the profiler; device busy "
-             f"{busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall"]
-    for e in evts[:40]:
-        lines.append(f"{_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  "
-                     f"{e.key[:90]}")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_decode.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n")
-    for line in lines[:16]:
-        log("profile: " + line)
+    report_profile(prof, f"kernel path, {steps} decode steps + 1 prefill",
+                   wall, os.path.join(out_dir, "profile_decode.txt"), 16)
     for sched in arms.values():
         sched.close()
     del arms, params
-    torch.cuda.empty_cache()
+    release()
 
 
 def top2_gap(cfg, params, tokens) -> float:
@@ -447,7 +797,190 @@ def phase_tokens():
     log("token equality: kernel == gather == use_terra=False on all "
         f"{len(base)} requests")
     del params
-    torch.cuda.empty_cache()
+    release()
+
+
+# --------------------------------------------------------------------------
+# phases 5 and 6: the imperative scoring program through function()
+# --------------------------------------------------------------------------
+
+SCORE_BATCH, SCORE_SEQ = 4, 512
+SCORE_CALLS = 10                 # calls of the kernel program in phase 5
+
+
+def score_tokens(cfg, i):
+    import numpy as np
+    return np.random.RandomState(1000 + i).randint(
+        0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ)).astype(np.int32)
+
+
+def score_call(step, cfg, i):
+    """One call of the scoring program; the next-token logits are fetched
+    in every call, so every call has the same fetches."""
+    import numpy as np
+    scores, order, last = step(score_tokens(cfg, i))
+    last = last.numpy()
+    check(scores.shape == (SCORE_BATCH,) and np.isfinite(scores).all()
+          and (scores < 0).all(), f"bad scores {scores}")
+    check(last.shape == (SCORE_BATCH, cfg.vocab) and np.isfinite(last).all(),
+          f"bad next-token logits {last.shape}")
+    check(sorted(order.tolist()) == list(range(SCORE_BATCH)),
+          f"bad ranking {order}")
+    return scores
+
+
+def profile_score_calls(step, cfg, name, out_dir, n=2):
+    """One torch.profiler window over ``n`` calls of a scoring program:
+    device time by kernel and the device busy share, the table written to
+    ``out_dir``/profile_score_<name>.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            score_call(step, cfg, 200 + i)
+        step.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, f"{name} program, {n} calls of {SCORE_BATCH}x"
+                   f"{SCORE_SEQ} tokens", wall,
+                   os.path.join(out_dir, f"profile_score_{name}.txt"), 12)
+
+
+def phase_coexec_kernels(rows, profile_dir=None):
+    import torch
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("llama3-8b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_rms, n_attn = 2 * cfg.n_layers + 1, cfg.n_layers
+    # the default optimize ("all") adds the kernels pass on the card
+    step = llama_score_program(core, cfg, params, SCORE_BATCH, SCORE_SEQ)
+    peak = {"traced": 0, "compiled": 0}
+    # counts of this path only: zeroed just before it, read just after
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SCORE_CALLS):
+        traced = step.stats.get("traced_iterations", 0)
+        torch.cuda.reset_peak_memory_stats()
+        score_call(step, cfg, i)
+        step.wait()
+        kind = ("traced" if step.stats["traced_iterations"] > traced
+                else "compiled")
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = step.stats
+    compiled = st["iterations"] - st["traced_iterations"]
+    keys = ("iterations", "traced_iterations", "retraces", "replays",
+            "graph_versions", "kernels_substituted", "feeds_folded",
+            "nodes_eliminated", "cse_hits", "segments_dispatched",
+            "steady_iters")
+    log("coexec-kernels counters: " + json.dumps(
+        {k: st.get(k) for k in keys} | {"phase": step.phase}))
+    log(f"coexec-kernels launches: {json.dumps(counts)}; {SCORE_CALLS} "
+        f"calls of {SCORE_BATCH}x{SCORE_SEQ} tokens in {wall:.2f} s (bring-up "
+        f"reading, includes tracing); peak device memory "
+        f"{peak['traced'] / 2**30:.1f} GiB in a traced call, "
+        f"{peak['compiled'] / 2**30:.1f} GiB in a compiled call")
+    check(step.phase == "co-execution", f"phase {step.phase}")
+    check(st["kernels_substituted"] >= n_rms + n_attn,
+          f"kernels_substituted {st['kernels_substituted']} < "
+          f"{n_rms + n_attn}")
+    check(compiled > 0, "no call ran the compiled graph")
+    # traced calls run the unfused ops eagerly; each compiled call runs
+    # every rms_norm and attention node through its kernel
+    check(counts["rmsnorm"] == compiled * n_rms,
+          f"rmsnorm launches {counts['rmsnorm']} != {compiled} compiled "
+          f"calls x {n_rms}")
+    check(counts["flash_attention"] == compiled * n_attn,
+          f"flash_attention launches {counts['flash_attention']} != "
+          f"{compiled} compiled calls x {n_attn}")
+    rows[1]["launches"] = counts["rmsnorm"]
+    rows[2]["launches"] = counts["flash_attention"]
+
+    # bring-up reading: unfused program against kernel program, in turns
+    unfused = llama_score_program(core, cfg, params, SCORE_BATCH, SCORE_SEQ,
+                                  optimize="safe")
+    arms = {"kernel": step, "unfused": unfused}
+    for i in range(3):                    # tracing + co-execution entry
+        score_call(unfused, cfg, i)
+    turn_scores = []
+    for name in ("unfused", "kernel", "kernel", "unfused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [score_call(arms[name], cfg, 100 + i) for i in range(5)]
+        arms[name].wait()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        turn_scores.append(got)
+        log(f"coexec turn {name}: {ms:.1f} ms per call "
+            f"({SCORE_BATCH * SCORE_SEQ / ms * 1e3:.0f} tokens/s)")
+    diff = max(abs(a - b).max()
+               for a, b in zip(turn_scores[0], turn_scores[1]))
+    log(f"coexec bf16 scores, kernel vs unfused: max abs diff {diff:.3e} "
+        f"(bf16 rounding differs between the arms; phase 6 checks f32)")
+    check(unfused.phase == "co-execution", f"unfused phase {unfused.phase}")
+    if profile_dir is not None:
+        for name, fn in arms.items():
+            profile_score_calls(fn, cfg, name, profile_dir)
+    for fn in arms.values():
+        fn.close()
+    del step, unfused, arms, params
+    release()
+
+
+def phase_coexec_equality():
+    import repro_torch.core as core
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=4,
+                              dtype="float32", param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    arms = {"kernel": llama_score_program(core, cfg, params, SCORE_BATCH,
+                                          SCORE_SEQ),
+            "unfused": llama_score_program(core, cfg, params, SCORE_BATCH,
+                                           SCORE_SEQ, optimize="safe")}
+    outs = {}
+    for name, step in arms.items():
+        before = read_counts()
+        outs[name] = [score_call(step, cfg, i) for i in range(5)]
+        step.wait()
+        after = read_counts()
+        log(f"coexec-equality arm {name}: phase {step.phase}, "
+            f"kernels_substituted {step.stats.get('kernels_substituted')}, "
+            f"launches rmsnorm {after['rmsnorm'] - before['rmsnorm']}, "
+            f"flash_attention "
+            f"{after['flash_attention'] - before['flash_attention']}")
+        check(step.phase == "co-execution", f"{name} phase {step.phase}")
+        if name == "kernel":
+            check(after["flash_attention"] > before["flash_attention"]
+                  and after["rmsnorm"] > before["rmsnorm"],
+                  "the kernel arm launched no kernel")
+        step.close()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs["kernel"], outs["unfused"])):
+        d = abs(a - b)
+        worst = max(worst, float(d.max()))
+        if (d > 1e-4).any():
+            j = int(d.argmax())
+            raise SmokeFailure(
+                f"float32 scores differ at call {i}, sequence {j}: kernel "
+                f"{a[j]!r} vs unfused {b[j]!r}")
+    log(f"coexec-equality: float32 scores of the kernel and the unfused "
+        f"program agree on all 5 calls (max abs diff {worst:.3e} <= 1e-4)")
+    del arms, params
+    release()
 
 
 # --------------------------------------------------------------------------
@@ -456,7 +989,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also time steady-state decode (kernel vs gather "
-                         "path) and profile it into chiprun_out/")
+                         "path) and profile it and the scoring programs "
+                         "into chiprun_out/")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -476,7 +1010,8 @@ def main() -> int:
     try:
         from repro_torch.kernels import build
         t0 = time.perf_counter()
-        built = build.build_all(["paged_attention"])
+        built = build.build_all(["paged_attention", "rmsnorm",
+                                 "flash_attention"])
         log(f"build: {json.dumps(built)} (wall {time.perf_counter() - t0:.1f}"
             f" s)")
         for name, text in build.LOGS.items():
@@ -487,9 +1022,14 @@ def main() -> int:
                 f"{max(map(int, spills), default=0)} bytes spill stores")
         smi = nvidia_smi_line()
         log(f"card: {smi}")
-        rows = [phase_kernels()]
+        rows = [phase_kernels(),
+                rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
+                flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ)]
         phase_serving(rows)
         phase_tokens()
+        phase_coexec_kernels(rows, os.path.join(HERE, "chiprun_out")
+                             if args.profile else None)
+        phase_coexec_equality()
         if args.profile:
             phase_profile(os.path.join(HERE, "chiprun_out"))
     except SmokeFailure as e:

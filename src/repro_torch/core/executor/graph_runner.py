@@ -207,3 +207,7 @@ class GraphRunner:
             with self._cv:
                 self._dq.append(None)       # sentinel: not a counted closure
                 self._cv.notify()
+            # wait for the worker to leave: a daemon thread still inside
+            # torch when the interpreter finalizes aborts the process
+            if self._worker is not threading.current_thread():
+                self._worker.join()

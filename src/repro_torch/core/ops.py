@@ -265,6 +265,17 @@ def _transpose(a, axes=None):
     return a.permute(*(axes if axes is not None else range(a.ndim - 1, -1, -1)))
 
 
+def _promoted(fn):
+    """A product of several operands that first casts them all to their
+    promoted type, as ``jnp.matmul``/``jnp.einsum`` do (torch's kernels
+    refuse mixed dtypes; its promotion table agrees with JAX's for the
+    float32/bfloat16/int32 pairs the op layer sees)."""
+    def impl(*xs, **attrs):
+        dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+        return fn(*(x.to(dt) for x in xs), **attrs)
+    return impl
+
+
 def _rms_norm(x, g, eps=1e-6):
     return g * x * torch.rsqrt(torch.mean(torch.square(x), -1, keepdim=True)
                                + eps)
@@ -301,8 +312,8 @@ gelu          = def_op("gelu", lambda a: F.gelu(a, approximate="tanh"))
 silu          = def_op("silu", lambda a: F.silu(a))
 softmax       = def_op("softmax", lambda a, *, axis=-1: torch.softmax(a, axis))
 log_softmax   = def_op("log_softmax", lambda a, *, axis=-1: torch.log_softmax(a, axis))
-matmul        = def_op("matmul", lambda a, b: torch.matmul(a, b))
-einsum        = def_op("einsum", lambda *xs, expr: torch.einsum(expr, *xs))
+matmul        = def_op("matmul", _promoted(torch.matmul))
+einsum        = def_op("einsum", _promoted(lambda *xs, expr: torch.einsum(expr, *xs)))
 reshape       = def_op("reshape", lambda a, *, new_shape: torch.reshape(a, new_shape))
 transpose     = def_op("transpose", _transpose)
 _getitem_raw  = def_op("getitem", lambda a, *, idx: a[_idx_decode(idx)])

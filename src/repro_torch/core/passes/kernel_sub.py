@@ -29,9 +29,13 @@ Patterns:
 The pass only runs when requested: ``optimize="all"`` enables it on the
 ``"cuda"`` backend; elsewhere it must be named explicitly (the wrappers
 then run their plain versions, which validate numerics but are not fast).
-On the card a pattern is rewritten only once its Hopper kernel exists
-(``CUDA_KERNEL_OPS``): the rmsnorm and flash-attention kernels arrive in a
-later slice, and until then those patterns keep their unfused ops there.
+On the card a pattern is rewritten only when its kernel op has a Hopper
+kernel (``CUDA_KERNEL_OPS``); all three have one, so the pass rewrites
+the same nodes on ``"cuda"`` as on ``"cpu"`` and as the reference does on
+a TPU.  ``kernel.attention`` hands the flash-attention wrapper
+``q[:, None]`` views; the wrapper makes its inputs contiguous, which
+copies nothing for the contiguous ``[B*H, S, D]`` operands a traced
+attention chain has.
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ Key = Tuple[int, int]
 SCALE_RTOL = 1e-3
 _CONST_EVAL_MAX = 32        # nodes per bias-chain evaluation
 
-# kernel ops with a hand-written kernel on the card; the others are
-# substituted only off the card, where every wrapper runs its plain version
-CUDA_KERNEL_OPS = frozenset({"kernel.slot_decode_paged"})
+# kernel ops with a hand-written kernel on the card; an op missing here
+# would be substituted only off the card, where every wrapper runs its
+# plain version
+CUDA_KERNEL_OPS = frozenset({"kernel.slot_decode_paged", "kernel.rms_norm",
+                             "kernel.attention"})
 
 
 # --------------------------------------------------------------------------

@@ -1,18 +1,22 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-    paged_attention — single-token paged decode attention, CUDA C++ for
-                      sm_90a (csrc/paged_attention.cu), bound by ctypes
-    build.py        — nvcc build at first use into kernels/_build/
+    paged_attention — single-token paged decode attention
+                      (csrc/paged_attention.cu)
+    rmsnorm         — fused single-pass RMSNorm (csrc/rmsnorm.cu)
+    flash_attention — causal/SWA/GQA online-softmax attention
+                      (csrc/flash_attention.cu)
+    build.py        — nvcc build (sm_90a) at first use into kernels/_build/,
+                      bound by ctypes
     ref.py          — plain versions: the CPU path and the ground truth
     ops.py          — the entry points the model and kernel_sub call
 
-The rmsnorm, flash_attention and ssd_scan kernels of the reference wait
-for later slices of the port.
+The reference's ssd_scan kernel waits for a later slice of the port.
 """
 
-# ``paged_attention`` stays the submodule's name here (its wrapper carries
-# the launch counter): call it as kernels.ops.paged_attention or
-# kernels.paged_attention.paged_attention
+# as in the reference, the package exports the rmsnorm and flash_attention
+# wrappers (which shadow their submodules' names; each wrapper carries its
+# launch counter).  ``paged_attention`` stays the submodule's name here:
+# call it as kernels.ops.paged_attention.
 from repro_torch.kernels.ops import flash_attention, rmsnorm
 
 __all__ = ["flash_attention", "rmsnorm"]

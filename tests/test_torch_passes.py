@@ -342,12 +342,14 @@ def test_resolve_pipeline_matches_reference_and_adds_kernels_on_cuda():
         t_resolve(("dce", "nope"))
 
 
-def test_kernel_sub_leaves_unported_patterns_unfused_on_cuda():
-    """On the card only patterns with a Hopper kernel are rewritten (the
-    rmsnorm and flash-attention kernels arrive in a later slice): the same
-    traced graph gets 1 substitution for backend "cpu" and 0 for "cuda"."""
+def test_kernel_sub_rewrites_every_pattern_on_cuda():
+    """Every kernel op has a Hopper kernel, so on the card the pass
+    rewrites what it rewrites off the card: the same traced graph gets 1
+    substitution for backend "cpu" and 1 for "cuda"."""
     from repro_torch.core.passes import kernel_sub, run_passes
-    assert kernel_sub.CUDA_KERNEL_OPS == {"kernel.slot_decode_paged"}
+    assert kernel_sub.CUDA_KERNEL_OPS == {"kernel.slot_decode_paged",
+                                          "kernel.rms_norm",
+                                          "kernel.attention"}
     for prog in (kernel_rmsnorm, kernel_attention):
         _, (opt, ref) = prog(PORT)
         eng, fam = opt.engine, opt.engine.family
@@ -356,6 +358,6 @@ def test_kernel_sub_leaves_unported_patterns_unfused_on_cuda():
                                     fam.fetch_obs, backend=backend)
                 .counters.get("kernels_substituted", 0)
                 for backend in ("cpu", "cuda")}
-        assert subs == {"cpu": 1, "cuda": 0}, prog.__name__
+        assert subs == {"cpu": 1, "cuda": 1}, prog.__name__
         opt.close()
         ref.close()
