@@ -7,8 +7,8 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build    — compile every hand-written kernel (paged attention, rmsnorm,
-              flash attention) from this checkout's sources (one nvcc per
-              source, all at once, sm_90a) and print the card.
+              flash attention, SSD scan) from this checkout's sources (one
+              nvcc per source, all at once, sm_90a) and print the card.
 2. kernels  — each kernel against its plain PyTorch version on the card,
               over a sweep of shapes and at its main path's own shape,
               with its time beside the plain version's, a PyTorch library
@@ -31,10 +31,25 @@ Phases, in order; any failure exits non-zero and prints no result:
               (``optimize="safe"``) and the kernel one in turns.
 6. coexec-equality — full width, 4 layers, float32 (TF32 off): the kernel
               program's scores equal the unfused program's within 1e-4.
-7. profile  — only with ``--profile``: steady-state decode time per step,
+7. mamba2-serving — mamba2-130m at its published width and depth (random
+              bf16 weights from a seed) served by the co-executed
+              continuous-batching scheduler: 24 requests through 16 slots,
+              prompts 64-1024 tokens admitted at exact length.  Every
+              prefill runs the SSD-scan kernel once per layer, decode none:
+              launches == 24 x prefill steps (counters zeroed just before,
+              read just after).
+8. mamba2-equality — full width, 4 layers, float32 (TF32 off): greedy
+              tokens equal on the card with co-execution, on the card with
+              ``use_terra=False`` and on the CPU (``device="cpu"``, the
+              plain chunked math); forward logits of [2, 512] tokens card
+              vs CPU within 1e-4; one full-depth bf16 forward of [4, 2048]
+              tokens (24 SSD launches, finite logits).
+9. profile  — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share);
-              phase 5 then also profiles two calls of each scoring program.
+              phase 5 then also profiles two calls of each scoring program,
+              and mamba2 serving is timed and profiled over batches of 16
+              requests (prompts 512-527, 64 new tokens).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -406,7 +421,8 @@ def launch_counters():
     from repro_torch.kernels import ops as kops
     return {"paged_attention": kops.paged_attention,
             "rmsnorm": kops.rmsnorm,
-            "flash_attention": kops.flash_attention}
+            "flash_attention": kops.flash_attention,
+            "ssd_scan": kops.ssd_scan}
 
 
 def zero_counts():
@@ -984,13 +1000,355 @@ def phase_coexec_equality():
 
 
 # --------------------------------------------------------------------------
+# the SSD-scan kernel (phase 2) and mamba2-130m (phases 7 and 8)
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:48-54 (SSD_SWEEP), a prime length (the reference's
+# chunk halves to 1) and a length below the chunk
+SSD_SWEEP = [
+    # (B, S, H, P, N, chunk)
+    (1, 64, 2, 16, 16, 16),
+    (2, 128, 4, 32, 32, 32),
+    (1, 128, 2, 64, 16, 64),
+    (1, 96, 2, 16, 32, 32),
+    (1, 37, 2, 16, 16, 16),
+    (2, 20, 2, 16, 16, 64),
+]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the main path's two shapes at mamba2-130m's widths: one request's
+# prefill (with the final state) and the eval forward
+SSD_PATH = {"prefill": (1, 1024, True), "forward": (4, 2048, False)}
+MAMBA_H, MAMBA_P, MAMBA_N, MAMBA_CHUNK = 24, 64, 128, 256
+
+
+def ssd_inputs(B, S, H, P, N, dtype, seed, dt_dtype, strided):
+    """x, dt, A, Bm, Cm on the card, the reference test's distributions
+    (dt = softplus(randn) * 0.1, A = -exp(randn * 0.3)).  ``strided``: x,
+    Bm and Cm are slices of one [B, S, H*P + 2N] buffer, as mamba2_block
+    hands them over, and dt a slice of a wider buffer."""
+    import numpy as np
+    import torch
+    r = np.random.RandomState(seed)
+    d_inner = H * P
+    conv = torch.from_numpy(r.randn(B, S, d_inner + 2 * N).astype(
+        np.float32)).to("cuda", dtype)
+    dtw = torch.from_numpy((np.log1p(np.exp(r.randn(B, S, H + 3))) * 0.1)
+                           .astype(np.float32)).to("cuda", dt_dtype)
+    A = torch.from_numpy((-np.exp(r.randn(H) * 0.3)).astype(
+        np.float32)).to("cuda")
+    x = conv[..., :d_inner].reshape(B, S, H, P)
+    Bm, Cm = conv[..., d_inner:d_inner + N], conv[..., d_inner + N:]
+    dt = dtw[..., 3:]
+    if not strided:
+        x, dt, Bm, Cm = (t.contiguous() for t in (x, dt, Bm, Cm))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_bound_ms(x, dt, Bm, final):
+    """Each input read once, y (and the final state) written once; the
+    work 2·S·H·(Q·N + Q·P + 2·P·N) per batch row at the reference's chunk
+    Q (256, halved until it divides S), at the peak of x's type."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    el, del_ = x.element_size(), dt.element_size()
+    nbytes = (2 * B * S * H * P * el + 2 * B * S * N * el + B * S * H * del_
+              + H * 4 + (B * H * P * N * 4 if final else 0))
+    Q = min(MAMBA_CHUNK, S)
+    while S % Q:
+        Q //= 2
+    ops = 2 * B * S * H * (Q * N + Q * P + 2 * P * N)
+    dtn = str(x.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtn]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def ssd_kernel_row():
+    """ssd_scan against ref_ssd (the sequential recurrence) and the port's
+    plain chunked math (models/ssm.ssd_chunked_plain, called directly on
+    the card as the yardstick) over SSD_SWEEP and the path's shapes, in
+    f32 and bf16, with and without the final state, contiguous and
+    strided; timed at both path shapes in bf16 over rotating strided
+    inputs (together > the L2).  No single PyTorch call computes the SSD
+    scan, so the row has no library time."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ref_ssd
+    from repro_torch.models.ssm import ssd_chunked_plain
+
+    def compare(label, args, chunk, final, strided, tol):
+        out = kops.ssd_scan(*args, chunk=chunk, return_final=final)
+        y, h = out if final else (out, None)
+        ry, rh = ref_ssd(*args, return_final=True)
+        cy = ssd_chunked_plain(*args, chunk, return_final=final)
+        cy, ch = cy if final else (cy, None)
+        torch.cuda.synchronize()
+        pairs = [("ref_ssd", y, ry), ("chunked", y, cy)]
+        if final:
+            pairs += [("ref_ssd h", h, rh), ("chunked h", h, ch)]
+        errs = {}
+        for name, a, b in pairs:
+            err, ok = close_err(a, b, tol)
+            errs[name] = err
+            check(ok, f"ssd_scan disagrees with {name} at {label}: "
+                  f"err={err}")
+        log(f"ssd_scan {label} final={final} strided={strided}: max_abs_err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {tol})")
+        return errs["chunked"]
+
+    for i, case in enumerate(SSD_SWEEP):
+        B, S, H, P, N, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            for final in (False, True):
+                args = ssd_inputs(B, S, H, P, N, dtype, i, torch.float32,
+                                  strided=final)
+                compare(f"{case} {name}", args, chunk, final, final,
+                        SSD_TOL[name])
+    err = None
+    for j, (shape, (B, S, final)) in enumerate(SSD_PATH.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            # the model hands over bf16 dt in a bf16 model
+            args = ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, dtype, 50 + j,
+                              dtype, strided=True)
+            e = compare(f"{shape} [{B},{S},{MAMBA_H},{MAMBA_P}] N={MAMBA_N} "
+                        f"{name}", args, MAMBA_CHUNK, final, True,
+                        SSD_TOL[name])
+            if shape == "prefill" and dtype == torch.bfloat16:
+                err = e
+            del args
+    row = None
+    for shape, (B, S, final) in SSD_PATH.items():
+        ins = [ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, torch.bfloat16,
+                          100 + i, torch.bfloat16, strided=True)
+               for i in range(16 if B == 1 else 4)]
+        ms = time_ms(rotating([
+            lambda t=t: kops.ssd_scan(*t, chunk=MAMBA_CHUNK,
+                                      return_final=final) for t in ins]), 40)
+        plain_ms = time_ms(rotating([
+            lambda t=t: ssd_chunked_plain(*t, MAMBA_CHUNK,
+                                          return_final=final)
+            for t in ins]), 8)
+        bound, by = ssd_bound_ms(ins[0][0], ins[0][1], ins[0][3], final)
+        log(f"ssd_scan bf16 {shape} [{B},{S},{MAMBA_H},{MAMBA_P}] "
+            f"N={MAMBA_N} final={final}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); no PyTorch "
+            f"library call computes the SSD scan")
+        if row is None:
+            row = {"name": "ssd_scan", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                   "replaces": "src/repro/kernels/ssd_scan.py:21",
+                   "launches": None, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+        del ins
+    release()
+    return row
+
+
+MAMBA_SERVE_KW = dict(max_slots=16, max_len=2048)
+
+
+def phase_mamba2_serving(rows):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"mamba2-130m: {M.param_count(params) / 1e6:.1f} M params "
+        f"({cfg.param_dtype}), {cfg.n_layers} ssd layers")
+    sched = ContinuousBatchingScheduler(cfg, params, **MAMBA_SERVE_KW)
+    reqs = make_requests(cfg, 24, seed=3, prompt_lo=64, prompt_hi=1024,
+                         new_lo=32, new_hi=128)
+    # counts of the main path only: zeroed just before it, read just after
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["ssd_scan"]
+    st = sched.stats
+    sched.close()
+
+    for i, r in enumerate(reqs):
+        check(r.out_tokens is not None
+              and len(r.out_tokens) == r.max_new_tokens,
+              f"mamba2 request {i} got {len(r.out_tokens or [])} of "
+              f"{r.max_new_tokens} tokens")
+    check(st["phase"] == "co-execution", f"mamba2 phase {st['phase']}")
+    check(st["iterations"] == st["decode_steps"],
+          "engine iterations != scheduler decode steps")
+    check(st["prefill_tokens"] == sum(len(r.prompt) for r in reqs),
+          "prompts were not admitted at exact length")
+    # every prefill (eager, both arms) runs the SSD scan once per layer;
+    # decode runs ssd_decode_step, no kernel
+    check(launches == cfg.n_layers * st["prefill_steps"] and launches > 0,
+          f"ssd_scan launches {launches} != {cfg.n_layers} layers x "
+          f"{st['prefill_steps']} prefill steps")
+    gen = st["generated_tokens"]
+    log(f"mamba2 serving: {len(reqs)} requests, {gen} tokens in {wall:.2f} s "
+        f"= {gen / wall:.1f} tokens/s (bring-up reading, includes tracing "
+        f"and warm-up), decode steps {st['decode_steps']}, prefill steps "
+        f"{st['prefill_steps']} ({st['prefill_tokens']} prompt tokens), "
+        f"ssd_scan launches {launches} = {st['prefill_steps']} x "
+        f"{cfg.n_layers} layers")
+    keys = ("phase", "iterations", "traced_iterations", "steady_iters",
+            "retraces", "replays", "graph_versions", "families",
+            "kernels_substituted", "segments_dispatched",
+            "segments_recompiled", "admitted", "retired",
+            "generated_tokens", "decode_steps", "prefill_steps",
+            "prefill_tokens")
+    log("mamba2 serving counters: " + json.dumps({k: st.get(k) for k in keys}))
+    log(f"mamba2 serving launches: {json.dumps(counts)}")
+    rows[3]["launches"] = launches
+    del sched, params
+    release()
+
+
+def phase_mamba2_equality():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("mamba2 equality: float32, allow_tf32=False for matmul and cuDNN")
+    cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=4,
+                              dtype="float32", param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    arms = {"kernel": (params, {}),
+            "use_terra=False": (params, dict(use_terra=False)),
+            "cpu": (cpu_params, dict(device="cpu"))}
+    outs = {}
+    for name, (p, kw) in arms.items():
+        reqs = make_requests(cfg, 8, seed=4, prompt_lo=16, prompt_hi=256,
+                             new_lo=16, new_hi=32)
+        before = kops.ssd_scan.launches
+        sched = ContinuousBatchingScheduler(cfg, p, max_slots=4, max_len=512,
+                                            **kw)
+        sched.serve(reqs)
+        st = sched.stats
+        sched.close()
+        n = kops.ssd_scan.launches - before
+        outs[name] = reqs
+        log(f"mamba2 token arm {name}: {sum(len(r.out_tokens) for r in reqs)}"
+            f" tokens, phase {st.get('phase')}, prefill steps "
+            f"{st['prefill_steps']}, ssd_scan launches {n}")
+        want = 0 if name == "cpu" else cfg.n_layers * st["prefill_steps"]
+        check(n == want and (name == "cpu" or n > 0),
+              f"mamba2 arm {name}: ssd_scan launches {n} != {want}")
+    base = outs["kernel"]
+    for name in ("use_terra=False", "cpu"):
+        for i, (a, b) in enumerate(zip(base, outs[name])):
+            if a.out_tokens == b.out_tokens:
+                continue
+            step = next(j for j, (x, y) in enumerate(
+                zip(a.out_tokens, b.out_tokens)) if x != y)
+            gap = top2_gap(cfg, params, list(a.prompt) + a.out_tokens[:step])
+            raise SmokeFailure(
+                f"mamba2 greedy tokens differ: kernel vs {name}, request {i}"
+                f", step {step}: {a.out_tokens[step]} vs "
+                f"{b.out_tokens[step]}, top-2 logit gap {gap:.3e}")
+    log("mamba2 token equality: kernel == use_terra=False == cpu on all "
+        f"{len(base)} requests")
+
+    ids = np.random.RandomState(5).randint(0, cfg.vocab, (2, 512)).astype(
+        np.int32)
+    with torch.no_grad():
+        on_card = M.forward(cfg, params, torch.from_numpy(ids).cuda())
+        on_cpu = M.forward(cfg, cpu_params, torch.from_numpy(ids))
+    err, ok = close_err(on_card.cpu(), on_cpu, 1e-4)
+    log(f"mamba2 forward logits [2, 512] card vs cpu (float32): max_abs_err "
+        f"{err:.3e} (tol 1e-4)")
+    check(ok, f"mamba2 forward logits card vs cpu differ: {err}")
+    del on_card, on_cpu, params, cpu_params
+    release()
+
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    ids = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab, (4, 2048)).astype(np.int32)).cuda()
+    before = kops.ssd_scan.launches
+    with torch.no_grad():
+        logits = M.forward(cfg, params, ids)
+    torch.cuda.synchronize()
+    n = kops.ssd_scan.launches - before
+    finite = bool(torch.isfinite(logits).all())
+    log(f"mamba2 forward [4, 2048] bf16, {cfg.n_layers} layers: logits "
+        f"{tuple(logits.shape)}, finite {finite}, ssd_scan launches {n}")
+    check(n == cfg.n_layers, f"forward launched ssd_scan {n} times, not "
+          f"{cfg.n_layers}")
+    check(finite and tuple(logits.shape) == (4, 2048, cfg.vocab),
+          "mamba2 forward logits not finite or misshapen")
+    del logits, params
+    release()
+
+
+def phase_mamba2_profile(out_dir):
+    """Steady mamba2-130m serving at full width and depth (bf16): after a
+    warm-up batch (tracing, co-execution entry), batches of 16 requests
+    admitted together (prompts 512-527 tokens at exact length, 64 new
+    tokens each) through 16 slots: host wall time per batch, then one
+    torch.profiler window over a batch for device time by kernel and the
+    device busy share (the table in ``out_dir``/profile_mamba2.txt)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    sched = ContinuousBatchingScheduler(cfg, params, **MAMBA_SERVE_KW)
+
+    def batch(seed):
+        reqs = make_requests(cfg, 16, seed, 512, 527, 64, 64)
+        st0 = dict(sched.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.serve(reqs)
+        torch.cuda.synchronize()
+        st = sched.stats
+        return (time.perf_counter() - t0,
+                st["decode_steps"] - st0["decode_steps"],
+                st["prefill_steps"] - st0["prefill_steps"])
+
+    batch(200)
+    for seed in (201, 202):
+        wall, dec, pre = batch(seed)
+        log(f"mamba2 profile: {pre} prefill steps + {dec} decode steps in "
+            f"{wall * 1e3:.1f} ms ({16 * 64 / wall:.1f} generated tokens/s)")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, dec, pre = batch(210)
+    report_profile(prof, f"mamba2 serving, {pre} prefill steps + {dec} "
+                   f"decode steps", wall,
+                   os.path.join(out_dir, "profile_mamba2.txt"), 16)
+    sched.close()
+    del sched, params
+    release()
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also time steady-state decode (kernel vs gather "
-                         "path) and profile it and the scoring programs "
-                         "into chiprun_out/")
+                         "path) and profile it, the scoring programs and "
+                         "mamba2 serving into chiprun_out/")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1011,7 +1369,7 @@ def main() -> int:
         from repro_torch.kernels import build
         t0 = time.perf_counter()
         built = build.build_all(["paged_attention", "rmsnorm",
-                                 "flash_attention"])
+                                 "flash_attention", "ssd_scan"])
         log(f"build: {json.dumps(built)} (wall {time.perf_counter() - t0:.1f}"
             f" s)")
         for name, text in build.LOGS.items():
@@ -1024,14 +1382,18 @@ def main() -> int:
         log(f"card: {smi}")
         rows = [phase_kernels(),
                 rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
-                flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ)]
+                flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ),
+                ssd_kernel_row()]
         phase_serving(rows)
         phase_tokens()
         phase_coexec_kernels(rows, os.path.join(HERE, "chiprun_out")
                              if args.profile else None)
         phase_coexec_equality()
+        phase_mamba2_serving(rows)
+        phase_mamba2_equality()
         if args.profile:
             phase_profile(os.path.join(HERE, "chiprun_out"))
+            phase_mamba2_profile(os.path.join(HERE, "chiprun_out"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -16,8 +16,9 @@ transformer assembly (models/transformer.py).  Kinds:
 
 The schema is the reference's field for field, so a port config compares
 equal to its reference counterpart; field comments give the reference's
-meaning.  The port's first slice reads the attention and compute fields;
-MoE, SSM, RG-LRU, encoder, remat and unroll fields wait for later slices.
+meaning.  The port reads the attention, SSM (Mamba-2) and compute fields;
+MoE, RG-LRU, encoder and remat fields wait for later slices, and
+``unroll`` has no effect (the port runs its loops in Python).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Architecture registry + reduced smoke-test variants (the serving slice
-of the port carries llama3-8b; further architectures arrive with the
-model kinds they need).
+"""Architecture registry + reduced smoke-test variants (the port carries
+llama3-8b and mamba2-130m; further architectures arrive with the model
+kinds they need).
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``smoke_config(arch_id)`` returns a reduced config of the same family
@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import llama3_8b, mamba2_130m
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {
     "llama3-8b": llama3_8b.CONFIG,
+    "mamba2-130m": mamba2_130m.CONFIG,
 }
 
 

@@ -265,7 +265,7 @@ def _transpose(a, axes=None):
     return a.permute(*(axes if axes is not None else range(a.ndim - 1, -1, -1)))
 
 
-def _promoted(fn):
+def promoted(fn):
     """A product of several operands that first casts them all to their
     promoted type, as ``jnp.matmul``/``jnp.einsum`` do (torch's kernels
     refuse mixed dtypes; its promotion table agrees with JAX's for the
@@ -312,8 +312,8 @@ gelu          = def_op("gelu", lambda a: F.gelu(a, approximate="tanh"))
 silu          = def_op("silu", lambda a: F.silu(a))
 softmax       = def_op("softmax", lambda a, *, axis=-1: torch.softmax(a, axis))
 log_softmax   = def_op("log_softmax", lambda a, *, axis=-1: torch.log_softmax(a, axis))
-matmul        = def_op("matmul", _promoted(torch.matmul))
-einsum        = def_op("einsum", _promoted(lambda *xs, expr: torch.einsum(expr, *xs)))
+matmul        = def_op("matmul", promoted(torch.matmul))
+einsum        = def_op("einsum", promoted(lambda *xs, expr: torch.einsum(expr, *xs)))
 reshape       = def_op("reshape", lambda a, *, new_shape: torch.reshape(a, new_shape))
 transpose     = def_op("transpose", _transpose)
 _getitem_raw  = def_op("getitem", lambda a, *, idx: a[_idx_decode(idx)])

@@ -5,18 +5,18 @@
     rmsnorm         — fused single-pass RMSNorm (csrc/rmsnorm.cu)
     flash_attention — causal/SWA/GQA online-softmax attention
                       (csrc/flash_attention.cu)
+    ssd_scan        — Mamba-2 SSD chunked scan with an optional final
+                      state (csrc/ssd_scan.cu)
     build.py        — nvcc build (sm_90a) at first use into kernels/_build/,
                       bound by ctypes
     ref.py          — plain versions: the CPU path and the ground truth
     ops.py          — the entry points the model and kernel_sub call
-
-The reference's ssd_scan kernel waits for a later slice of the port.
 """
 
-# as in the reference, the package exports the rmsnorm and flash_attention
-# wrappers (which shadow their submodules' names; each wrapper carries its
-# launch counter).  ``paged_attention`` stays the submodule's name here:
-# call it as kernels.ops.paged_attention.
-from repro_torch.kernels.ops import flash_attention, rmsnorm
+# as in the reference, the package exports the rmsnorm, flash_attention
+# and ssd_scan wrappers (which shadow their submodules' names; each
+# wrapper carries its launch counter).  ``paged_attention`` stays the
+# submodule's name here: call it as kernels.ops.paged_attention.
+from repro_torch.kernels.ops import flash_attention, rmsnorm, ssd_scan
 
-__all__ = ["flash_attention", "rmsnorm"]
+__all__ = ["flash_attention", "rmsnorm", "ssd_scan"]

@@ -8,6 +8,8 @@ asked for the CPU; any other device raises:
     rmsnorm         — fused RMSNorm (csrc/rmsnorm.cu)
     flash_attention — causal / window / GQA attention
                       (csrc/flash_attention.cu)
+    ssd_scan        — Mamba-2 SSD chunked scan, optional final state
+                      (csrc/ssd_scan.cu)
 
 Each name is the wrapper function itself, so ``ops.rmsnorm.launches`` is
 the kernel's launch counter.
@@ -18,5 +20,6 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-__all__ = ["paged_attention", "rmsnorm", "flash_attention"]
+__all__ = ["paged_attention", "rmsnorm", "flash_attention", "ssd_scan"]

@@ -63,3 +63,24 @@ def ref_rmsnorm(x, g, eps: float = 1e-6):
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     return (y * (1.0 + g.float())).to(x.dtype)
+
+
+def ref_ssd(x, dt, A, Bm, Cm, *, return_final: bool = False):
+    """Sequential SSD recurrence (the literal state-space semantics).
+
+    x: [B,S,H,P]; dt: [B,S,H]; A: [H]; Bm/Cm: [B,S,N] -> y [B,S,H,P] in
+    x's dtype, with the f32 state h [B,H,P,N] carried token by token;
+    ``return_final`` also returns the state after the last token."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    A = A.float()
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t] * A[None, :])                      # [B,H]
+        upd = torch.einsum("bn,bh,bhp->bhpn", bf[:, t], dtf[:, t], xf[:, t])
+        h = h * da[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], h))
+    y = torch.stack(ys, 1).to(x.dtype)
+    return (y, h) if return_final else y

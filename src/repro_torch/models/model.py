@@ -1,5 +1,6 @@
 """Model entry points: init, cache management and the serve-path wrappers
-(prefill / one decode step) of the decoder-only attention family."""
+(prefill / one decode step) of the decoder-only attention and SSM
+families."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ def param_count(params) -> int:
 
 
 # ==========================================================================
-# KV cache
+# KV / recurrent cache
 # ==========================================================================
 
 def _slot_cache(cfg, kind: str, nb: Optional[int], batch: int, max_len: int,
@@ -35,11 +36,20 @@ def _slot_cache(cfg, kind: str, nb: Optional[int], batch: int, max_len: int,
         raise NotImplementedError(f"{kind!r} caches arrive in a later "
                                   f"slice of the port")
     dt = getattr(torch, cfg.dtype)
+
+    def zeros(*s, dtype=dt):
+        shp = (nb,) + s if nb is not None else s
+        return torch.zeros(shp, dtype=dtype, device=device)
+
+    if kind == "ssd":
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        dc = H * P + 2 * N                      # conv runs over (x, B, C)
+        # recurrent state kept in f32 for numerical stability
+        return {"conv": zeros(batch, cfg.conv_kernel - 1, dc),
+                "ssm": zeros(batch, H, P, N, dtype=torch.float32)}
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
-    shp = (batch, max_len, Hkv, D)
-    shp = (nb,) + shp if nb is not None else shp
-    return {"k": torch.zeros(shp, dtype=dt, device=device),
-            "v": torch.zeros(shp, dtype=dt, device=device)}
+    return {"k": zeros(batch, max_len, Hkv, D),
+            "v": zeros(batch, max_len, Hkv, D)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

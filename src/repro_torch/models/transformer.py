@@ -1,4 +1,4 @@
-"""Transformer assembly for the decoder-only attention family.
+"""Transformer assembly for the decoder-only attention and SSM families.
 
 The model is a stack of *super-blocks*: each applies the config's
 ``block_pattern`` once.  Parameters keep the reference's stacked layout —
@@ -7,9 +7,9 @@ so the flat leaf order (and the serving pool's Variables) match it leaf
 for leaf.  The reference scans over that axis with ``jax.lax.scan``; here
 a Python loop indexes it.
 
-This slice carries the ``attn`` block kind (llama-family).  MoE, SSD,
-RG-LRU, cross-attention and encoder blocks raise ``NotImplementedError``
-until their slices.
+The port carries the ``attn`` block kinds (llama-family) and ``ssd``
+(Mamba-2).  MoE, RG-LRU, cross-attention and encoder blocks raise
+``NotImplementedError`` until their slices.
 """
 
 from __future__ import annotations
@@ -23,9 +23,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
+from repro_torch.models.ssm import mamba2_block
 
 ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
-PORTED_KINDS = ("attn", "attn_swa", "attn_local")
+PORTED_KINDS = ("attn", "attn_swa", "attn_local", "ssd")
 
 
 def _check_kinds(cfg) -> None:
@@ -70,6 +71,24 @@ def _mlp_params(cfg, gen, stack):
     }
 
 
+def _ssd_params(cfg, gen, stack):
+    d = cfg.d_model
+    H, P, N, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_kernel
+    d_inner = H * P
+    dc = d_inner + 2 * N
+    dt = _dt(cfg)
+    return {
+        "w_in": L.he_init(gen, (d, 2 * d_inner + 2 * N + H), dt, stack),
+        "w_conv": L.trunc_normal(gen, tuple(stack) + (dc, K), dt, 0.1),
+        "dt_bias": torch.zeros(tuple(stack) + (H,), dtype=dt,
+                               device=gen.device),
+        # the decay rates stay float32 whatever param_dtype is
+        "a_log": torch.zeros(tuple(stack) + (H,), dtype=torch.float32,
+                             device=gen.device),
+        "w_out": L.he_init(gen, (d_inner, d), dt, stack),
+    }
+
+
 def _norm_params(cfg, device, stack=()):
     shp = tuple(stack) + (cfg.d_model,)
     dt = _dt(cfg)
@@ -83,6 +102,9 @@ def _block_params(cfg, gen, kind: str, stack=()):
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} arrives in a later "
                                   f"slice of the port")
+    if kind == "ssd":               # attention-free: no norm2, no MLP
+        return {"norm1": _norm_params(cfg, gen.device, stack),
+                "ssd": _ssd_params(cfg, gen, stack)}
     return {"norm1": _norm_params(cfg, gen.device, stack),
             "attn": _attn_params(cfg, gen, stack),
             "norm2": _norm_params(cfg, gen.device, stack),
@@ -136,11 +158,16 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
     Attention caches are stored per layer as {"k","v"} (dense rows) or
     {"kp","vp"} (paged block arenas); the shared fill length — and, for
     paged caches, the shared block table ``cache_bt`` — is threaded
-    separately so layer caches can be stacked.
+    separately so layer caches can be stacked.  SSD caches are
+    {"conv","ssm"} and take neither.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} arrives in a later "
                                   f"slice of the port")
+    if kind == "ssd":
+        h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
+                                    cfg, cache=cache)
+        return x + h, new_cache
     c = None
     if cache is not None:
         c = {**cache, "len": cache_len}

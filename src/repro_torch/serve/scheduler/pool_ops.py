@@ -56,16 +56,17 @@ from repro_torch.models import transformer as T
 from repro_torch.serve.meta import MetaRegistry
 
 # kinds whose cache reads tolerate right-padding (garbage entries beyond
-# the valid length are masked out by the attention valid-length mask)
+# the valid length are masked out by the attention valid-length mask);
+# recurrent kinds fold every position into their state, so their prompts
+# must be admitted at exact length (no padding)
 PAD_SAFE_KINDS = ("attn", "attn_swa", "attn_local", "moe")
-# recurrent kinds (the reference's ssd / rglru) fold every position into
-# their state; they arrive with their model slices
 RECURRENT_KINDS = ("ssd", "rglru")
 
 
 def check_supported(cfg) -> None:
-    """This slice's slot pool serves the self-attention decoder stacks the
-    port's model carries; other families raise until their slices."""
+    """The slot pool serves the self-attention and recurrent decoder
+    stacks the port's model carries (``rglru`` raises until its slice);
+    other families raise until their slices."""
     kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
     bad = [k for k in kinds if k not in T.PORTED_KINDS]
     if bad or cfg.enc_layers:
@@ -87,7 +88,8 @@ def build_pool_cache(cfg, max_slots: int, max_len: int, page_size: int = 0,
     (leaves, treedef, batch_axes, paged): ``batch_axes[i]`` is the slot
     axis of leaf i — stacked layer caches carry a leading n_pattern_blocks
     axis, extra-block caches do not — and ``paged[i]`` marks leaves laid
-    out as block arenas instead of slot rows."""
+    out as block arenas instead of slot rows.  Recurrent leaves (``ssd``
+    conv window and state) stay dense slot rows under a page size."""
     dt = getattr(torch, cfg.dtype)
 
     def slot(kind, nb):

@@ -110,7 +110,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     s.close()
 
 
-def test_kernel_wrappers_never_fall_back_for_device_tensors():
+def test_kernel_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     """A non-CPU tensor reaching a kernel wrapper launches its kernel or
     raises; the plain version runs only for CPU tensors."""
     from repro_torch.kernels import ops as kops
@@ -123,6 +123,23 @@ def test_kernel_wrappers_never_fall_back_for_device_tensors():
     vl = torch.ones(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         kops.paged_attention(q, kv, kv, bt, vl)
+    # the SSD scan and the model function that reaches it: a meta tensor
+    # raises, and the plain versions never run for it
+    from repro_torch.models import ssm
+    ssd_mod = sys.modules["repro_torch.kernels.ssd_scan"]
+    x = torch.zeros(1, 8, 2, 16, device="meta")
+    dt = torch.zeros(1, 8, 2, device="meta")
+    a = torch.zeros(2, device="meta")
+    bc = torch.zeros(1, 8, 16, device="meta")
+    ran = []
+    monkeypatch.setattr(ssd_mod, "ref_ssd", lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(ssm, "ssd_chunked_plain",
+                        lambda *a, **k: ran.append(1))
+    with pytest.raises(NotImplementedError):
+        kops.ssd_scan(x, dt, a, bc, bc, return_final=True)
+    with pytest.raises(NotImplementedError):
+        ssm.ssd_chunked(x, dt, a, bc, bc, 4, return_final=True)
+    assert not ran
 
 
 def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):

@@ -205,3 +205,53 @@ def test_unported_block_kinds_raise():
                       block_pattern=("moe",))
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, device="cpu")
+
+
+def test_mamba2_configs_are_the_reference_configs():
+    assert dataclasses.asdict(t_smoke("mamba2-130m")) == \
+        dataclasses.asdict(j_smoke("mamba2-130m"))
+    from repro.configs import get_config as jg
+    from repro_torch.configs import get_config as tg
+    assert dataclasses.asdict(tg("mamba2-130m")) == \
+        dataclasses.asdict(jg("mamba2-130m"))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mamba2_init_params_mirror_the_reference_layout(dtype):
+    """ssd blocks carry norm1 and ssd only; a_log stays float32 whatever
+    param_dtype is; params_from_jax carries the reference's leaves over
+    unchanged, in the same order."""
+    kw = dict(dtype=dtype, param_dtype=dtype)
+    jcfg = dataclasses.replace(j_smoke("mamba2-130m"), **kw)
+    tcfg = dataclasses.replace(t_smoke("mamba2-130m"), **kw)
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    assert sorted(tp["blocks"][0]) == ["norm1", "ssd"]
+    assert tp["blocks"][0]["ssd"]["a_log"].dtype == torch.float32
+    tl, tdef = tree_flatten(tp)
+    jl = jax.tree_util.tree_leaves(jp)
+    assert [tuple(t.shape) for t in tl] == [a.shape for a in jl]
+    assert [str(t.dtype).replace("torch.", "") for t in tl] == \
+        [str(a.dtype) for a in jl]
+    conv = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    assert tdef == tree_flatten(conv)[1]
+    for t, a in zip(tree_flatten(conv)[0], jl):
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("page_size", [0, 8])
+def test_mamba2_pool_cache_matches_the_reference(page_size):
+    """The slot pool's recurrent leaves: conv window in cfg.dtype, state
+    in float32, dense slot rows even under a page size."""
+    from repro.serve.scheduler import pool_ops as JP
+    from repro_torch.serve.scheduler import pool_ops as TP
+    jl, _, jax_axes, jpaged = JP.build_pool_cache(j_smoke("mamba2-130m"), 3,
+                                                  32, page_size, 13)
+    tl, _, t_axes, tpaged = TP.build_pool_cache(t_smoke("mamba2-130m"), 3,
+                                                32, page_size, 13, "cpu")
+    assert [tuple(t.shape) for t in tl] == [a.shape for a in jl]
+    assert [str(t.dtype).replace("torch.", "") for t in tl] == \
+        [str(a.dtype) for a in jl]
+    assert t_axes == jax_axes and tpaged == jpaged == (False, False)
+    assert not TP.pads_allowed(t_smoke("mamba2-130m"))

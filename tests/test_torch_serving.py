@@ -1,9 +1,11 @@
-"""The slice as a whole: the port's paged continuous-batching scheduler,
-co-executed with the ``kernels`` pass, against the JAX scheduler.
+"""The slices as a whole: the port's paged continuous-batching scheduler,
+co-executed with the ``kernels`` pass, against the JAX scheduler; and the
+same scheduler serving the recurrent mamba2 stack (exact-length
+admission, the SSD scan in every prefill).
 
 Same params (the reference's, converted), same requests, float32 smoke
-llama: greedy tokens must be identical and the scheduler and engine
-counters equal.  ``donated_bytes`` is left out of the comparison: the
+llama and mamba2: greedy tokens must be identical and the scheduler and
+engine counters equal.  ``donated_bytes`` is left out of the comparison: the
 reference donates pool buffers to XLA, the port does not donate yet (its
 segments never write in place), so the port's stays 0 until buffer
 donation is ported.
@@ -24,6 +26,7 @@ from repro.serve.scheduler import \
     ContinuousBatchingScheduler as JScheduler  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels.ops import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import Request  # noqa: E402
 from repro_torch.serve.scheduler import \
@@ -52,6 +55,15 @@ def _one_thread():
 def llama():
     jcfg = dataclasses.replace(j_smoke("llama3-8b"), **F32)
     tcfg = dataclasses.replace(t_smoke("llama3-8b"), **F32)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    jcfg = dataclasses.replace(j_smoke("mamba2-130m"), **F32)
+    tcfg = dataclasses.replace(t_smoke("mamba2-130m"), **F32)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     return jcfg, tcfg, jp, tp
@@ -149,3 +161,53 @@ def test_scheduler_deferred_features_raise(llama):
     with pytest.raises(NotImplementedError):
         ContinuousBatchingScheduler(tcfg, tp, max_slots=2, max_len=32,
                                     profile=4, device="cpu")
+
+
+# tests/test_scheduler.py:192-205 (lens [8, 8, 11], two slots), and a mix
+# with prime lengths whose later requests are admitted while the earlier
+# ones decode
+MAMBA_MIXES = {
+    "reference": dict(lens=[8, 8, 11], mns=[5, 3, 6], max_slots=2,
+                      max_len=64),
+    "prime-mid-decode": dict(lens=[13, 8, 37, 5, 11], mns=[6, 2, 5, 7, 3],
+                             max_slots=2, max_len=64),
+}
+
+
+@pytest.mark.parametrize("mix", sorted(MAMBA_MIXES))
+def test_port_mamba2_scheduler_matches_jax(mamba, mix):
+    """Recurrent stacks prefill at exact length; the port's SSD path
+    (the plain chunked math on the CPU) serves the same greedy tokens
+    with the same counters as the reference."""
+    jcfg, tcfg, jp, tp = mamba
+    m = dict(MAMBA_MIXES[mix])
+    lens, mns = m.pop("lens"), m.pop("mns")
+    want, jst = serve(JScheduler(jcfg, jp, **m), JRequest, jcfg.vocab, lens,
+                      mns)
+    before = SSD.launches
+    got, tst = serve(ContinuousBatchingScheduler(tcfg, tp, device="cpu",
+                                                 **m),
+                     Request, tcfg.vocab, lens, mns)
+    assert got == want                              # greedy tokens identical
+    assert {k: tst[k] for k in SCHED_KEYS} == {k: jst[k] for k in SCHED_KEYS}
+    assert {k: tst.get(k) for k in ENGINE_KEYS} == \
+        {k: jst.get(k) for k in ENGINE_KEYS}
+    assert tst["phase"] == "co-execution"
+    # every admission is its own exact-length prefill step
+    assert tst["prefill_tokens"] == sum(lens)
+    assert tst["admitted"] == len(lens)
+    assert SSD.launches == before                   # CPU: plain version
+
+
+def test_port_mamba2_use_terra_false_equals_co_execution(mamba):
+    _, tcfg, _, tp = mamba
+    m = dict(MAMBA_MIXES["prime-mid-decode"])
+    lens, mns = m.pop("lens"), m.pop("mns")
+    co, st = serve(ContinuousBatchingScheduler(tcfg, tp, device="cpu", **m),
+                   Request, tcfg.vocab, lens, mns)
+    plain, pst = serve(ContinuousBatchingScheduler(
+        tcfg, tp, use_terra=False, device="cpu", **m), Request, tcfg.vocab,
+        lens, mns)
+    assert co == plain
+    assert st["phase"] == "co-execution"
+    assert {k: pst[k] for k in SCHED_KEYS} == {k: st[k] for k in SCHED_KEYS}
