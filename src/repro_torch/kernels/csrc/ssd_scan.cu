@@ -15,13 +15,14 @@
 // x/Bm/Cm are float32 or bfloat16, dt float32 or bfloat16, A [H] float32.
 //
 // Bound.  At the serving prefill (x [1, 1024, 24, 64] bf16, N = 128) the
-// inputs and y are ~7.6 MB (2.3 us at 3.35 TB/s) and the work at the
-// reference's chunk of 256 is ~3.2 GFLOP (3.3 us at the bf16 tensor-core
-// peak): operations bound it, by a little.  This first kernel does every
-// product as f32 FMAs on the CUDA cores, and each CTA recomputes the
-// chunk's C.B^T (B and C are shared by all heads), so it sits far above
-// that bound; tensor cores (mma/wgmma on bf16 B, C and x), sharing C.B^T
-// across the heads of a CTA and TMA staging are later work.
+// inputs, y and h_final are ~7.6 MB (2.3 us at 3.35 TB/s) and the work at
+// the reference's chunk of 256 is ~1.7 GFLOP (1.7 us at the bf16
+// tensor-core peak; C.B^T counted once for all heads): bytes bound it.
+// This first kernel does every product as f32 FMAs on the CUDA cores, and
+// each CTA recomputes the chunk's C.B^T (B and C are shared by all
+// heads), so it sits far above that bound; tensor cores (mma/wgmma on
+// bf16 B, C and x), sharing C.B^T across the heads of a CTA and TMA
+// staging are later work.
 //
 // Design (simple and right first).  The TPU grid (B, H, chunks), with its
 // sequential chunk axis carrying h in scratch, becomes one CTA of 256

@@ -65,6 +65,22 @@ def ref_rmsnorm(x, g, eps: float = 1e-6):
     return (y * (1.0 + g.float())).to(x.dtype)
 
 
+# The shapes and tolerances at which the SSD-scan kernel is held against
+# ref_ssd and the chunked math (tests and chip_smoke.py): the reference's
+# tests/test_kernels.py:48-54, a prime length (the reference's chunk
+# halves to 1) and a length below the chunk.
+SSD_SWEEP = [
+    # (B, S, H, P, N, chunk)
+    (1, 64, 2, 16, 16, 16),
+    (2, 128, 4, 32, 32, 32),
+    (1, 128, 2, 64, 16, 64),
+    (1, 96, 2, 16, 32, 32),
+    (1, 37, 2, 16, 16, 16),
+    (2, 20, 2, 16, 16, 64),
+]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
 def ref_ssd(x, dt, A, Bm, Cm, *, return_final: bool = False):
     """Sequential SSD recurrence (the literal state-space semantics).
 

@@ -6,8 +6,7 @@ chunk, with the f32 state ``h [P, N]`` carried across chunks.  The kernel
 ``src/repro/kernels/ssd_scan.py:_ssd_kernel``: one CTA per (b, h, 16-row
 tile of P) loops over 64-token chunks in order, keeps its slice of h in
 shared memory and masks a ragged last chunk, so every length runs at the
-kernel's own chunk (the result does not depend on the chunk; ``chunk``
-is accepted for the reference's signature).  ``return_final`` also
+kernel's own chunk.  ``return_final`` also
 returns the state after the last token, ``h_final [B, H, P, N]`` f32: the
 state the TPU kernel holds in VMEM scratch after its last chunk.
 
@@ -72,7 +71,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
              return_final: bool = False):
     """x: [B,S,H,P]; dt: [B,S,H]; A: [H] f32; Bm/Cm: [B,S,N] -> y
     [B,S,H,P] in x's dtype (and h_final [B,H,P,N] f32 when
-    ``return_final``)."""
+    ``return_final``).  ``chunk`` is kept only for the reference's
+    signature: neither the kernel nor ``ref_ssd`` depends on it."""
     B, S, H, P, N = _check(x, dt, A, Bm, Cm)
     devs = {t.device for t in (x, dt, A, Bm, Cm)}
     if len(devs) != 1:

@@ -106,8 +106,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
                 unroll: bool = False):
     """SSD forward (shapes as ``ssd_chunked_plain``).  CUDA tensors launch
     the SSD-scan kernel, CPU tensors run the plain chunked math; any other
-    device raises.  ``unroll`` (the reference's dry-run switch) has no
-    effect here."""
+    device raises.  ``unroll`` (the reference's dry-run switch) is kept
+    only so that the reference's calls carry over; it has no effect."""
     del unroll
     if x.device.type == "cuda":
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,

@@ -24,23 +24,12 @@ import pytest
 torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.kernels.ref import ref_ssd  # noqa: E402
+from repro_torch.kernels.ref import SSD_SWEEP, ref_ssd  # noqa: E402
+from repro_torch.kernels.ref import SSD_TOL as TOL_SSD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
-# tests/test_kernels.py:48-54, plus a prime length (the reference's chunk
-# halves to 1) and a length below the chunk
-SSD_SWEEP = [
-    # (B, S, H, P, N, chunk)
-    (1, 64, 2, 16, 16, 16),
-    (2, 128, 4, 32, 32, 32),
-    (1, 128, 2, 64, 16, 64),
-    (1, 96, 2, 16, 32, 32),
-    (1, 37, 2, 16, 16, 16),
-    (2, 20, 2, 16, 16, 64),
-]
-TOL_SSD = {"float32": 1e-4, "bfloat16": 5e-2}
 TOL_CHUNKED = 2e-4
 TOL_MODEL = 1e-4
 F32 = dict(dtype="float32", param_dtype="float32")
