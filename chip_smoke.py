@@ -10,9 +10,14 @@ Phases, in order; any failure exits non-zero and prints no result:
               flash attention, SSD scan) from this checkout's sources (one
               nvcc per source, all at once, sm_90a) and print the card.
 2. kernels  — each kernel against its plain PyTorch version on the card,
-              over a sweep of shapes and at its main path's own shape,
-              with its time beside the plain version's, a PyTorch library
-              call's and the least time the card could take (the bound).
+              over a sweep of shapes (``kernels/ref.py``'s sweeps, shared
+              with the tests) and at its main path's own shape, with its
+              time beside the plain version's, a PyTorch library call's
+              (kernel and library in three turns, by device time; the
+              row keeps the median of each) and the least time the card
+              could take (the bound); flash also at
+              1024 tokens and paged also at 8 rows up to 2048 tokens
+              (logged).  The build log's registers and spills per kernel.
 3. serving  — llama3-8b at its published width and depth (random bf16
               weights from a seed) served by the co-executed paged
               continuous-batching scheduler with the ``kernels`` pass: 12
@@ -46,8 +51,10 @@ Phases, in order; any failure exits non-zero and prints no result:
               tokens (24 SSD launches, finite logits).
 9. profile  — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
-              torch.profiler window (device time by kernel, busy share);
-              phase 5 then also profiles two calls of each scoring program,
+              torch.profiler window (device time by kernel, busy share,
+              the paged kernels' device time per decode step); phase 5
+              then also profiles two calls of each scoring program (the
+              flash kernel's device time per call),
               and mamba2 serving is timed and profiled over batches of 16
               requests (prompts 512-527, 64 new tokens).
 
@@ -119,11 +126,26 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()) / 1e3 / iters
+    for _ in range(3):          # a window that caught no kernel is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages())
+        if total > 0:
+            return total / 1e3 / iters
+    raise SmokeFailure("the profiler recorded no device time")
+
+
+def turns(kernel, library, iters, n=3):
+    """(kernel ms, library ms) by device time, taken in turns ``n`` times
+    in one call (their difference can be near the spread between calls),
+    and the median of each: a profiler window now and then records only
+    part of its kernels, and the median keeps such a turn out."""
+    got = [(device_ms(kernel, iters), device_ms(library, iters))
+           for _ in range(n)]
+    return got, sorted(k for k, _ in got)[n // 2], \
+        sorted(v for _, v in got)[n // 2]
 
 
 def rotating(fns):
@@ -145,6 +167,40 @@ def release():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def ptxas_entries(text):
+    """(kernel, registers, spill-store bytes) for each entry function in
+    ``nvcc -Xptxas -v`` output; kernel names shortened from their mangled
+    form to ``name<type,ints>``."""
+    out, cur, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append((_short_kernel(cur), int(m.group(1)), spill))
+            cur = None
+    return out
+
+
+def _short_kernel(mangled: str) -> str:
+    m = re.search(r"_kernelI(.*?)EEv", mangled)
+    if not m:
+        return mangled[:60]
+    end = m.start() + len("_kernel")
+    name = next((mangled[end - n:end] for n in range(8, 64)
+                 if mangled[end - n - len(str(n)):end - n] == str(n)
+                 and mangled[end - n].isalpha()), mangled[:end][-40:])
+    args = []
+    for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|^f", m.group(1)):
+        args.append(t.group(1) or ("bf16" if t.group(0)[0] == "1"
+                                   else "f32"))
+    return f"{name}<{','.join(args)}>"
 
 
 def nvidia_smi_line() -> str:
@@ -354,66 +410,77 @@ def sdpa_dense(q, kp, vp, bt, valid):
 
 
 def phase_kernels():
+    """paged_attention against ref_paged_attention over PAGED_SWEEP (each
+    window of PAGED_WINDOWS), the serving shape and the longer cache, in
+    f32 and bf16; timed at the serving shape in bf16 against the SDPA
+    yardstick in turns, and (a logged line only) at the longer cache."""
     import torch
     from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels.ref import ref_paged_attention
+    from repro_torch.kernels.ref import (PAGED_LONG, PAGED_SERVING,
+                                         PAGED_SWEEP, PAGED_WINDOWS,
+                                         ref_paged_attention)
+    cases = [(s, w) for s in PAGED_SWEEP for w in PAGED_WINDOWS]
+    cases += [(PAGED_SERVING, 0), (PAGED_SERVING, 100), (PAGED_LONG, 0)]
+    for i, (shape, window) in enumerate(cases):
+        B, Hkv, G, D, bs, nbps, nblocks, valid = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = paged_inputs(B, Hkv * G, Hkv, D, bs, nbps, nblocks, valid,
+                                dtype, seed=i)
+            out = PA.paged_attention(*args, window=window)
+            ref = ref_paged_attention(*args, window=window)
+            err, ok = close_err(out, ref, TOL[name])
+            ok = ok and not bool(torch.isnan(out.float()).any())
+            torch.cuda.synchronize()
+            log(f"paged sweep B={B} Hkv={Hkv} G={G} D={D} bs={bs} "
+                f"nbps={nbps} window={window} {name}: max_abs_err={err:.3e}"
+                f" (tol {TOL[name]}), splits x blocks "
+                f"{PA.split_plan(B, Hkv, nbps, bs)}")
+            check(ok, f"paged_attention disagrees: {shape[:7]} window="
+                  f"{window} {name} err={err}")
+            if shape is PAGED_SERVING and window == 0 and name == "bfloat16":
+                path_err = err
 
-    # the tests/test_paged.py shapes, GQA 1 and 4, window 0 and 6
-    for G in (1, 4):
-        for window in (0, 6):
-            for dtype in (torch.float32, torch.bfloat16):
-                Hkv = 2
-                args = paged_inputs(3, Hkv * G, Hkv, 16, 8, 4, 9, [5, 9, 16],
-                                    dtype, seed=G * 10 + window)
-                out = PA.paged_attention(*args, window=window)
-                ref = ref_paged_attention(*args, window=window)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                name = str(dtype).replace("torch.", "")
-                log(f"kernel sweep G={G} window={window} {name}: "
-                    f"max_abs_err={err:.3e} (tol {TOL[name]})")
-                check(err <= TOL[name], f"paged_attention disagrees: G={G} "
-                      f"window={window} {name} err={err}")
-
-    # the serving slice's own shape: llama3-8b heads, 8 slots x 512 tokens
-    # in 16-token pages, ragged lengths, trash-block tails
-    B, Hq, Hkv, D, bs, nbps, nblocks = 8, 32, 8, 128, 16, 32, 257
-    valid = [1, 17, 100, 255, 256, 300, 444, 512]
-    for dtype in (torch.float32, torch.bfloat16):
-        args = paged_inputs(B, Hq, Hkv, D, bs, nbps, nblocks, valid, dtype,
-                            seed=7)
-        out = PA.paged_attention(*args)
-        ref = ref_paged_attention(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        name = str(dtype).replace("torch.", "")
-        log(f"kernel at the slice shape {name}: max_abs_err={err:.3e} "
-            f"(tol {TOL[name]})")
-        check(err <= TOL[name], f"paged_attention disagrees at the slice "
-              f"shape ({name}): err={err}")
-    q, kp, vp, bt, vl = args                         # bf16, as served
-
-    # time over rotating copies of the arena (together > the 50 MB L2):
-    # decode reads each layer's arena cold
-    rot = [(kp.clone(), vp.clone()) for _ in range(8)]
-    ms = time_ms(rotating([
-        lambda k=k, v=v: PA.paged_attention(q, k, v, bt, vl)
-        for k, v in rot]), 200)
-    plain_ms = time_ms(rotating([
-        lambda k=k, v=v: ref_paged_attention(q, k, v, bt, vl)
-        for k, v in rot]), 50)
-    lib_ms = time_ms(rotating([sdpa_dense(q, k, v, bt, vl)
-                               for k, v in rot]), 200)
-    bound = paged_bound_ms(q, kp, bt, vl, bs)
-    log(f"paged_attention bf16 B={B} Hq={Hq} Hkv={Hkv} D={D} bs={bs} "
-        f"nbps={nbps}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa(dense) {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:75",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib_ms}
+    row = None
+    for shape in (PAGED_SERVING, PAGED_LONG):
+        B, Hkv, G, D, bs, nbps, nblocks, valid = shape
+        q, kp, vp, bt, vl = paged_inputs(B, Hkv * G, Hkv, D, bs, nbps,
+                                         nblocks, valid, torch.bfloat16,
+                                         seed=7)
+        # rotating copies of the arena (together > the 50 MB L2): decode
+        # reads each layer's arena cold; device time, since one call is
+        # shorter than its host overhead
+        rot = [(kp.clone(), vp.clone()) for _ in range(8 if nbps <= 32
+                                                     else 4)]
+        kernel = rotating([lambda k=k, v=v: PA.paged_attention(q, k, v, bt, vl)
+                           for k, v in rot])
+        lib = rotating([sdpa_dense(q, k, v, bt, vl) for k, v in rot])
+        got, ms, lib_ms = turns(kernel, lib, 48)
+        bound = paged_bound_ms(q, kp, bt, vl, bs)
+        label = (f"paged_attention bf16 B={B} Hq={Hkv * G} Hkv={Hkv} D={D} "
+                 f"bs={bs} nbps={nbps} (max valid {max(valid)})")
+        log(f"{label} turns (kernel, sdpa over gathered K/V) ms: "
+            + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got))
+        if row is None:
+            plain_ms = time_ms(rotating([
+                lambda k=k, v=v: ref_paged_attention(q, k, v, bt, vl)
+                for k, v in rot]), 50)
+            log(f"{label}: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.5f} ms ({ms / lib_ms:.2f}x), bound {bound:.5f} ms "
+                f"(bytes)")
+            row = {"name": "paged_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                   "replaces": "src/repro/kernels/paged_attention.py:75",
+                   "launches": None, "max_abs_err": path_err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "bytes", "library_ms": lib_ms}
+        else:
+            log(f"{label} (logged only): kernel {ms:.5f} ms, sdpa "
+                f"{lib_ms:.5f} ms ({ms / lib_ms:.2f}x), bound {bound:.5f} ms "
+                f"(bytes)")
+        del rot, kernel, lib
+    release()
+    return row
 
 
 def launch_counters():
@@ -481,13 +548,9 @@ def rmsnorm_kernel_row(shape):
                     for x in xs])
     plain_ms = device_ms(rotating([lambda x=x: ref_rmsnorm(x, g)
                                    for x in xs]), 48)
-    # kernel and library in turns: their difference is near the spread
-    # between calls
-    turns = [(device_ms(kernel, 48), device_ms(lib, 48)) for _ in range(3)]
+    got, ms, lib_ms = turns(kernel, lib, 48)
     log("rmsnorm turns (kernel, F.rms_norm) ms: "
-        + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in turns))
-    ms = sum(k for k, _ in turns) / len(turns)
-    lib_ms = sum(v for _, v in turns) / len(turns)
+        + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got))
     nbytes = 2 * xs[0].numel() * 2 + d * 2  # x read, out written, g read
     bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                       4 * xs[0].numel() / PEAK_OPS_PER_S["bfloat16"])
@@ -528,33 +591,19 @@ def attn_bound_ms(q, k, causal, window=0):
         else "operations"
 
 
-# tests/test_kernels.py:17-25 (ATTN_SWEEP) with the causal Sq != Skv case
-# its test skips, ragged lengths, and a window whose last rows reach no key
-ATTN_SWEEP = [
-    # (B, H, Hkv, Sq, Skv, D, causal, window)
-    (1, 4, 4, 128, 128, 64, True, 0),
-    (2, 8, 2, 256, 256, 64, True, 0),
-    (1, 4, 1, 128, 128, 128, True, 0),
-    (2, 4, 4, 128, 128, 64, False, 0),
-    (1, 4, 2, 256, 256, 64, True, 64),
-    (1, 2, 2, 64, 256, 64, False, 0),
-    (1, 2, 2, 64, 256, 64, True, 0),
-    (2, 2, 1, 100, 37, 32, False, 16),
-    (1, 2, 2, 77, 77, 16, True, 0),
-]
-
-
 def flash_kernel_row(bh, seq):
-    """flash_attention against ref_attention over ATTN_SWEEP and the main
-    path's shape (``bh`` heads of one (b, h) each, as kernel.attention
-    hands them over, ``seq`` tokens, D = 128, causal); timed there in bf16
-    over rotating copies of q/k/v, and once more at 1024 tokens."""
+    """flash_attention against ref_attention over ATTN_SWEEP and
+    CARD_ONLY_ATTN and the main path's shape (``bh`` heads of one (b, h)
+    each, as kernel.attention hands them over, ``seq`` tokens, D = 128,
+    causal); timed there in bf16 against SDPA in turns by device time over
+    rotating copies of q/k/v, and once more at 1024 tokens."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import ref_attention
+    from repro_torch.kernels.ref import (ATTN_SWEEP, CARD_ONLY_ATTN,
+                                         ref_attention)
     path = (bh, 1, 1, seq, seq, 128, True, 0)
-    for case in ATTN_SWEEP + [path]:
+    for case in ATTN_SWEEP + CARD_ONLY_ATTN + [path]:
         B, H, Hkv, Sq, Skv, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -574,25 +623,29 @@ def flash_kernel_row(bh, seq):
     for S in (seq, 1024):
         qkv = [[seeded((bh, 1, S, 128), torch.bfloat16, 20 + 3 * i + j)
                 for j in range(3)] for i in range(4)]
-        ms = time_ms(rotating([lambda t=t: kops.flash_attention(*t)
-                               for t in qkv]), 20)
-        plain_ms = time_ms(rotating([lambda t=t: ref_attention(*t)
-                                     for t in qkv]), 5)
-        lib_ms = time_ms(rotating([
+        kernel = rotating([lambda t=t: kops.flash_attention(*t) for t in qkv])
+        lib = rotating([
             lambda t=t: F.scaled_dot_product_attention(*t, is_causal=True)
-            for t in qkv]), 20)
+            for t in qkv])
+        got, ms, lib_ms = turns(kernel, lib, 20)
         bound, by = attn_bound_ms(qkv[0][0], qkv[0][1], True)
-        log(f"flash_attention bf16 [{bh},1,{S},128] causal: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
+        log(f"flash_attention bf16 [{bh},1,{S},128] causal turns (kernel, "
+            f"sdpa) ms: " + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got))
         if row is None:
+            plain_ms = time_ms(rotating([lambda t=t: ref_attention(*t)
+                                         for t in qkv]), 5)
             row = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:26",
                    "launches": None, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "library_ms": lib_ms}
-        del qkv
+        log(f"flash_attention bf16 [{bh},1,{S},128] causal: kernel "
+            f"{ms:.5f} ms, "
+            + (f"plain {plain_ms:.4f} ms, " if S == seq else "")
+            + f"sdpa {lib_ms:.5f} ms ({ms / lib_ms:.2f}x), bound "
+            f"{bound:.5f} ms ({by})")
+        del qkv, kernel, lib
     release()
     return row
 
@@ -683,16 +736,24 @@ def phase_serving(kernel_rows):
     release()
 
 
-def report_profile(prof, title, wall, path, show):
+def report_profile(prof, title, wall, path, show, per=None):
     """Device time by kernel from a torch.profiler window and the device
     busy share of ``wall`` seconds: the table goes to ``path``, its first
-    ``show`` lines to the log."""
+    ``show`` lines to the log.  ``per`` = (label, kernel names, units,
+    unit name) adds the named kernels' device time per unit."""
     evts = [e for e in prof.key_averages() if _device_us(e) > 0]
     evts.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in evts) / 1e6
     lines = [f"{title}, wall {wall * 1e3:.1f} ms under the profiler; "
              f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% "
              f"of wall"]
+    if per is not None:
+        label, names, units, unit = per
+        sel = [e for e in evts if any(n in e.key for n in names)]
+        ms = sum(_device_us(e) for e in sel) / 1e3
+        lines.insert(1, f"{label}: {ms / units:.3f} ms device time per "
+                     f"{unit} ({ms:.3f} ms, {sum(e.count for e in sel)} "
+                     f"launches over {units} {unit}s)")
     for e in evts[:40]:
         lines.append(f"{_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  "
                      f"{e.key[:90]}")
@@ -754,7 +815,10 @@ def phase_profile(out_dir):
                              ProfilerActivity.CUDA]) as prof:
         wall, steps = batch(arms["kernel"], 102)
     report_profile(prof, f"kernel path, {steps} decode steps + 1 prefill",
-                   wall, os.path.join(out_dir, "profile_decode.txt"), 16)
+                   wall, os.path.join(out_dir, "profile_decode.txt"), 16,
+                   per=("paged kernels (split + combine)",
+                        ("paged_split_kernel", "paged_combine_kernel"),
+                        steps, "decode step"))
     for sched in arms.values():
         sched.close()
     del arms, params
@@ -868,7 +932,8 @@ def profile_score_calls(step, cfg, name, out_dir, n=2):
         wall = time.perf_counter() - t0
     report_profile(prof, f"{name} program, {n} calls of {SCORE_BATCH}x"
                    f"{SCORE_SEQ} tokens", wall,
-                   os.path.join(out_dir, f"profile_score_{name}.txt"), 12)
+                   os.path.join(out_dir, f"profile_score_{name}.txt"), 12,
+                   per=("flash kernel", ("flash_bf16_kernel",), n, "call"))
 
 
 def phase_coexec_kernels(rows, profile_dir=None):
@@ -947,7 +1012,8 @@ def phase_coexec_kernels(rows, profile_dir=None):
     diff = max(abs(a - b).max()
                for a, b in zip(turn_scores[0], turn_scores[1]))
     log(f"coexec bf16 scores, kernel vs unfused: max abs diff {diff:.3e} "
-        f"(bf16 rounding differs between the arms; phase 6 checks f32)")
+        f"(bf16 rounding differs between the arms, and the flash kernel "
+        f"rounds P to bf16 before P.V; phase 6 checks f32)")
     check(unfused.phase == "co-execution", f"unfused phase {unfused.phase}")
     if profile_dir is not None:
         for name, fn in arms.items():
@@ -1369,11 +1435,15 @@ def main() -> int:
         log(f"build: {json.dumps(built)} (wall {time.perf_counter() - t0:.1f}"
             f" s)")
         for name, text in build.LOGS.items():
-            regs = re.findall(r"Used (\d+) registers", text)
-            spills = re.findall(r"(\d+) bytes spill stores", text)
-            log(f"  ptxas[{name}]: {len(regs)} kernels, at most "
-                f"{max(map(int, regs), default=0)} registers, at most "
-                f"{max(map(int, spills), default=0)} bytes spill stores")
+            entries = ptxas_entries(text)
+            log(f"  ptxas[{name}]: {len(entries)} kernels, at most "
+                f"{max((e[1] for e in entries), default=0)} registers, at "
+                f"most {max((e[2] for e in entries), default=0)} bytes "
+                f"spill stores")
+            for kname, regs, spill in entries:
+                if "128" in kname or not re.search(r"[<,]\d", kname):
+                    log(f"    {kname}: {regs} registers, {spill} bytes "
+                        f"spill stores")
         smi = nvidia_smi_line()
         log(f"card: {smi}")
         rows = [phase_kernels(),

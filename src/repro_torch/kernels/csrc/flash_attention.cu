@@ -1,38 +1,60 @@
 // Forward flash attention (causal / sliding-window / GQA) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_attn_kernel
-// and computes exactly ref_attention (kernels/ref.py): q [B,H,Sq,D],
-// k/v [B,Hkv,Skv,D] (contiguous), query head h reading KV head
-// h / (H / Hkv); scores (q * D^-0.5) . k in f32; a key is masked when
-// causal and kpos > qpos, or window > 0 and kpos <= qpos - window, with
-// positions counted from 0 for both axes (Sq != Skv allowed); an f32
-// online softmax (running max, denominator, [rows, D] accumulator); the
-// output acc / max(l, 1e-30) in q's dtype.  P stays f32 in the PV product:
-// the TPU kernel's p.astype(v.dtype) casts to a v that it has already
-// widened to f32 (flash_attention.py:50, :69), so it rounds nothing.
-//
-// Bound.  At the co-execution path's shape (B*H = 128, S = 1024, D = 128,
-// causal, bf16) the work is ~34 GFLOP over ~134 MB of q/k/v/o: 0.035 ms at
-// the bf16 tensor-core peak and 0.040 ms at 3.35 TB/s, so bytes bound it
-// by a little.  This first kernel does its products with f32 FMAs on the
-// CUDA cores (so it computes exactly what the plain version does, with no
-// rounding of P), and so it sits far above that bound: the tensor cores
-// (wgmma with bf16 P), TMA loads and warp specialisation are later work.
-//
-// Design (simple and correct first).  One CTA of 256 threads per (b, h,
-// 64-query tile).  The tile's scaled queries live in shared memory as f32,
-// transposed (Qt[d][row]); 32-key K (transposed) and V tiles stream
-// through shared memory as f32.  Thread (tx, ty) owns rows 4*ty..4*ty+3:
-// scores for keys tx and tx+16 of the tile, and accumulator columns
-// tx + 16*c.  A row's 16 owners sit in one half-warp, so its max and sum
-// are shuffle reductions; P goes through shared memory (Pt[key][row]) to
-// the PV product.  The TPU grid's sequential KV axis becomes a loop in the
-// CTA over the KV tiles that can hold an unmasked key: tiles wholly past
-// the diagonal (causal) or wholly before the window are skipped, as the TPU
-// kernel skips blocks past the diagonal.  Keys past Skv get weight 0
-// exactly.  A row that no key can reach (window > 0 and qpos >= Skv +
+// and computes ref_attention (kernels/ref.py): q [B,H,Sq,D], k/v
+// [B,Hkv,Skv,D] (contiguous), query head h reading KV head h / (H / Hkv);
+// scores (q . k) * D^-0.5 in f32; a key is masked (-1e30) when causal and
+// kpos > qpos, or window > 0 and kpos <= qpos - window, with positions
+// counted from 0 on both axes (Sq != Skv allowed); a key past Skv gets
+// weight 0 exactly; an f32 online softmax; the output acc / max(l, 1e-30)
+// in q's dtype.  A row that no key can reach (window > 0 and qpos >= Skv +
 // window - 1) gets the plain version's answer, the mean of v over all
-// keys: its tile then walks every KV tile.
+// keys, so its tile walks every KV tile; otherwise tiles wholly past the
+// diagonal or wholly before the window are skipped.  D in {16, 32, 64, 128}.
+//
+// Bound.  On the scoring path kernel.attention hands over q/k/v
+// [128, 1, 512, 128] bf16 causal (4 sequences x 32 heads, 512 tokens):
+// 8.6 GFLOP of products and 67 MB of q/k/v/o, i.e. 0.0087 ms at the bf16
+// tensor-core peak (989 TFLOP/s) against 0.020 ms at 3.35 TB/s, so bytes
+// bound it.  At 67 TFLOP/s of f32 outside the tensor cores the same
+// products need 0.128 ms, which is why the bf16 path runs on the tensor
+// cores, and on wgmma, the only way to their full rate.
+//
+// bf16 design (wgmma, FA2's load order).  One CTA of one warpgroup (4
+// warps) per (b*h, 64-query tile), each warp owning 16 query rows; the
+// tiles with the most keys are launched first (causal), so the causal tail
+// does not run alone.  Q, K and V tiles (64 rows) sit in shared memory in
+// the 128-byte swizzled layout wgmma reads (16-byte chunk c of row r at
+// c ^ (r & 7) of each 128-byte column block), filled by 16-byte
+// cp.async.cg copies and handed to the async proxy by a proxy fence.  One
+// buffer each (48 KB at D = 128), so three CTAs share an SM: V(t) loads
+// while S(t) and its softmax run, K(t+1) while P.V(t) runs.  S = Q.K^T is
+// wgmma.m64n64k16 with both operands in shared memory (K-major); it is
+// scaled by D^-0.5 * log2(e) in f32, then masked, then the online softmax
+// runs on the accumulator fragments (a row's max and sum across the 4
+// threads of a quad by shuffles, ex2).  P is rounded to bf16 in registers
+// and is the register A operand of wgmma.m64nDk16, with V read from
+// shared memory transposed (MN-major); O accumulates in f32 registers and
+// leaves through shared memory as 16-byte stores.  Head dims below 64 are
+// zero-padded to one 64-wide column block in shared memory.  160
+// registers at D = 128, no spills.  Next (ROADMAP Queue 2): TMA loads from a
+// producer warp, and two consumer warpgroups taking turns, so that one's
+// softmax hides behind the other's products.
+//
+// Numerics contract.  P rounds to bf16 before P.V (the TPU kernel widens
+// v to f32 and so rounds nothing: flash_attention.py:50, :69); the row
+// sum l is taken over the unrounded f32 P.  So the bf16 path matches the
+// plain version within the reference tests' bf16 tolerance (2e-2
+// allclose, tests/test_kernels.py:42), not bit for bit.
+//
+// f32 design.  The float32 instantiation keeps the scalar design (one CTA
+// of 256 threads per (b*h, 64-query tile), 32-key tiles widened in shared
+// memory, every product an f32 FMA on the CUDA cores): it is exact f32,
+// which the float32 equality gates (1e-4 with TF32 off, and the 2e-5
+// sweep) need.  Tensor cores on f32 would mean TF32, which breaks both.
+//
+// Times: PERF.md section 6 (chip_smoke.py phase 2, device time, NVIDIA
+// H100 80GB HBM3, 700.00 W).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,20 +64,16 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's masked score
+
+// --------------------------------------------------------------------------
+// float32: scalar f32 FMAs (exact)
+// --------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;             // query rows per CTA
+constexpr int kBQ = 64;             // query rows per CTA (both paths)
 constexpr int kBK = 32;             // keys per streamed tile
 constexpr int kQP = kBQ + 4;        // Qt / Pt row stride: float4-aligned
 constexpr int kKP = kBK + 1;        // Kt row stride: conflict-free stores
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -68,16 +86,29 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// The KV key range [lo, hi) that can hold an unmasked key for some row of
+// the query tile [q0, q_last]; every key when a row of it reaches none.
+__device__ __forceinline__ void kv_range(int q0, int q_last, int Skv,
+                                         int causal, int window, int* lo,
+                                         int* hi) {
+  *lo = 0;
+  *hi = Skv;
+  if (window > 0 && q_last >= Skv + window - 1) return;   // unreachable row
+  if (causal) *hi = min(Skv, q_last + 1);
+  if (window > 0) *lo = max(0, q0 - window + 1);
+}
+
 template <int D>
-constexpr size_t smem_floats() {
+constexpr size_t f32_smem_floats() {
   return (size_t)D * kQP + (size_t)D * kKP + (size_t)kBK * D + (size_t)kBK * kQP;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int H, int Hkv,
-                 int Sq, int Skv, int causal, int window, float scale) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int H,
+                 int Hkv, int Sq, int Skv, int causal, int window,
+                 float scale) {
   constexpr int kC = D / 16;                // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                         // [D][kQP]   scaled q, transposed
@@ -94,24 +125,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Skv * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Skv * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int qp = q0 + r;
-    Qt[d * kQP + r] = qp < Sq ? to_f32(qb[(size_t)qp * D + d]) * scale : 0.f;
+    Qt[d * kQP + r] = qp < Sq ? qb[(size_t)qp * D + d] * scale : 0.f;
   }
 
-  // the KV tiles that can hold an unmasked key for some row of this tile
-  const int q_last = min(q0 + kBQ, Sq) - 1;
-  int kv_lo = 0, kv_hi = Skv;
-  const bool unreachable_row = window > 0 && q_last >= Skv + window - 1;
-  if (!unreachable_row) {
-    if (causal) kv_hi = min(Skv, q_last + 1);
-    if (window > 0) kv_lo = max(0, q0 - window + 1);
-  }
+  int kv_lo, kv_hi;
+  kv_range(q0, min(q0 + kBQ, Sq) - 1, Skv, causal, window, &kv_lo, &kv_hi);
   const int t_lo = kv_lo / kBK;
   const int t_hi = (kv_hi + kBK - 1) / kBK;
 
@@ -130,8 +155,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / D, d = e - c * D;
       const int kp = k0 + c;
       const bool ok = kp < Skv;
-      Kt[d * kKP + c] = ok ? to_f32(kb[(size_t)kp * D + d]) : 0.f;
-      Vs[e] = ok ? to_f32(vb[(size_t)kp * D + d]) : 0.f;
+      Kt[d * kKP + c] = ok ? kb[(size_t)kp * D + d] : 0.f;
+      Vs[e] = ok ? vb[(size_t)kp * D + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,58 +231,381 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = out + ((size_t)bh * Sq + qp) * D;
+    float* orow = out + ((size_t)bh * Sq + qp) * D;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) store(orow + tx + 16 * c, acc[i][c] * inv_l);
+    for (int c = 0; c < kC; ++c) orow[tx + 16 * c] = acc[i][c] * inv_l;
   }
 }
 
-template <typename T, int D>
+// --------------------------------------------------------------------------
+// bfloat16: wgmma
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kBN = 64;             // keys per tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte async copy; zero-fills the destination when !ok (src unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// ties registers a wgmma wrote to a point after wgmma.wait_group, so no
+// use of them is scheduled before it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 64 f32) (+)= A (64 x 16, smem desc) . B (16 x 64, smem desc)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A (64 x 16, registers) . B (16 x 64, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 16, registers) . B (16 x 128, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ float ex2(float x) {     // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + 64) of a [rows, D] bf16 array into a tile of
+// [DP / 64][64][64] (DP = max(D, 64)) in the 128-byte swizzled layout:
+// 16-byte chunk c of row r of a column block lands at chunk c ^ (r & 7).
+// Rows past ``rows`` and columns past D are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
+                                          int rows, int tid) {
+  constexpr int kChunks = (D < 64 ? 64 : D) / 8;
+#pragma unroll
+  for (int c = tid; c < 64 * kChunks; c += 128) {
+    const int r = c / kChunks, ch = c - r * kChunks;
+    const bool row_ok = row0 + r < rows;
+    const bool ok = row_ok && ch < D / 8;
+    cp_async16(dst + (ch >> 3) * 4096 + r * 64 + (((ch & 7) ^ (r & 7)) << 3),
+               src + (size_t)(row_ok ? row0 + r : 0) * D + (ok ? ch * 8 : 0),
+               ok);
+  }
+}
+
+template <int D>
+constexpr size_t wg_smem_bytes() {
+  // Q, K and V tiles, and 1 KB to align them to the swizzle's period
+  return sizeof(bf16) * 3 * 64 * (D < 64 ? 64 : D) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 3)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out, int H,
+                  int Hkv, int Sq, int Skv, int causal, int window,
+                  float scale_log2) {
+  constexpr int DP = D < 64 ? 64 : D;       // head dim in shared memory
+  constexpr int kTile = 64 * DP;            // elements of a 64-row tile
+  constexpr int kNO = DP / 8;               // 8-column n-tiles of O
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: the tiles start on its period
+  const uint32_t pad = (1024u - (smem_addr(smem_raw) & 1023u)) & 1023u;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + pad);
+  bf16* sK = sQ + kTile;
+  bf16* sV = sK + kTile;
+
+  const int bh = blockIdx.x;                // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  // causal: the tiles with the most keys first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBQ;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;                  // fragment row within 8
+  const int t4 = lane & 3;                  // thread within the quad
+  const int row_a = q0 + warp * 16 + g;     // rows row_a and row_a + 8
+
+  const bf16* qb = q + (size_t)bh * Sq * D;
+  const bf16* kb = k + ((size_t)b * Hkv + hk) * Skv * D;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * Skv * D;
+
+  int kv_lo, kv_hi;
+  kv_range(q0, q_last, Skv, causal, window, &kv_lo, &kv_hi);
+  const int t_lo = kv_lo / kBN;
+  const int t_hi = (kv_hi + kBN - 1) / kBN;
+
+  load_tile<D>(sQ, qb, q0, Sq, tid);
+  load_tile<D>(sK, kb, t_lo * kBN, Skv, tid);
+  cp_async_commit();
+
+  float o[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};          // rows row_a and row_a + 8
+  float l[2] = {0.f, 0.f};                  // this thread's part of the sum
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    cp_async_wait_all();                    // K(t) has landed
+    fence_async_smem();
+    __syncthreads();                        // and every warp is done with V
+    load_tile<D>(sV, vb, t * kBN, Skv, tid);
+    cp_async_commit();
+
+    // S = Q . K^T: 64 x 64 f32, both operands K-major in shared memory; a
+    // k-step of 16 is 32 bytes into a 128-byte row of a column block
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) {
+      const int off = (kd >> 2) * 4096 + (kd & 3) * 16;
+      wgmma_ss_n64(s, sw128_desc(sQ + off, 16, 1024),
+                   sw128_desc(sK + off, 16, 1024), kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale in f32, then mask; a tile with no masked key skips the test.
+    // Fragment (j, e): row row_a + 8 * (e >> 1), key k0 + 8j + 2 t4 + (e & 1)
+    const int k0 = t * kBN;
+    const bool full = k0 + kBN <= Skv && (!causal || k0 + kBN - 1 <= q0) &&
+                      (window == 0 || k0 > q_last - window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (!full) {
+          const int kp = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qp = row_a + (e >> 1) * 8;
+          if (kp >= Skv) {
+            x = -INFINITY;                  // not a key: weight 0 exactly
+          } else if ((causal && kp > qp) ||
+                     (window > 0 && kp <= qp - window)) {
+            x = kNegInf;
+          }
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    // online softmax on the fragments: a row's 4 owners are a quad
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[j][e] - mx[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    cp_async_wait_all();                    // V(t) has landed
+    fence_async_smem();
+    __syncthreads();                        // and every warp is done with K
+    if (t + 1 < t_hi) {
+      load_tile<D>(sK, kb, (t + 1) * kBN, Skv, tid);
+      cp_async_commit();
+    }
+
+    // O += P . V: the S fragments of keys 16kk..16kk+15, rounded to bf16,
+    // are the A fragment (the m16n8k16 layout per warp); V is the B
+    // operand read transposed (MN-major): 8-key groups 1024 bytes apart,
+    // 64-column blocks 64 rows x 128 bytes apart
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = sw128_desc(sV + kk * 16 * 64, 64 * 128, 1024);
+      if constexpr (DP == 128) {
+        wgmma_rs_n128(o, pa[kk], dv);
+      } else {
+        wgmma_rs_n64(o, pa[kk], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  __syncthreads();                          // K and V are free
+
+  // the row sums over the quad, then O / l through shared memory (padded
+  // rows) to 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  constexpr int kRow = D + 8;
+  bf16* so = sK + warp * 16 * kRow;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(so + g * kRow + col) =
+        pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * kRow + col) =
+        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, ch = c - r * kChunks;
+    const int qp = q0 + warp * 16 + r;
+    if (qp < Sq)
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * Sq + qp) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(so + r * kRow + ch * 8);
+  }
+}
+
+// --------------------------------------------------------------------------
+
+template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      int B, int H, int Hkv, int Sq, int Skv, int causal,
-                     int window, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  // above 48 KB a CTA's dynamic shared memory must be asked for
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+                     int window, int dtype, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, Hkv, Sq, Skv, causal,
-      window, (float)(1.0 / sqrt((double)D)));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
-                     int B, int H, int Hkv, int Sq, int Skv, int D, int causal,
-                     int window, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, stream);
-    case 32: return launch_d<T, 32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, stream);
-    case 64: return launch_d<T, 64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, stream);
-    case 128: return launch_d<T, 128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, stream);
-    default: return cudaErrorInvalidValue;
+  const double scale = 1.0 / sqrt((double)D);
+  cudaError_t err;
+  // above 48 KB a CTA's dynamic shared memory must be asked for
+  if (dtype == 0) {
+    const size_t smem = sizeof(float) * f32_smem_floats<D>();
+    err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, H,
+        Hkv, Sq, Skv, causal, window, (float)scale);
+  } else {
+    const size_t smem = wg_smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_bf16_kernel<D><<<grid, 128, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, Hkv,
+        Sq, Skv, causal, window, (float)(scale * 1.4426950408889634));
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success).  The bf16
+// path reads and writes 16-byte vectors: q, k, v and out must be 16-byte
+// aligned (the wrapper sees to it).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int H,
                                      int Hkv, int Sq, int Skv, int D,
                                      int causal, int window, int dtype,
                                      void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
-      window < 0 || (Sq + kBQ - 1) / kBQ > 65535)
+      window < 0 || (Sq + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch_t<float>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, st);
-  if (dtype == 1)
-    return (int)launch_t<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, st);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return (int)launch_d<16>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
+    case 32: return (int)launch_d<32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
+    case 64: return (int)launch_d<64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
+    case 128: return (int)launch_d<128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

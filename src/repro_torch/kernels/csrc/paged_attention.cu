@@ -1,36 +1,56 @@
-// Paged single-token decode attention for Hopper (sm_90a).
+// Paged single-token decode attention for Hopper (sm_90a): split-K.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py:_paged_kernel
-// and computes exactly ref_paged_attention (kernels/ref.py): for each row b
-// and query head, softmax over the row's valid cache positions of
+// and computes ref_paged_attention (kernels/ref.py): for each row b and
+// query head, softmax over the row's valid cache positions of
 // (q * D^-0.5) . k, times v, with K/V read from a flat block arena
 // kp/vp [num_blocks, bs, Hkv, D] through the row's block table bt[b, :].
 // Positions at or past valid[b], and (window > 0) before valid[b] - window,
-// are masked.  Accumulation is f32; the output is written in q's dtype.
+// are masked (-1e30 inside a visited block, as the reference does); blocks
+// that hold no such position are never read.  Accumulation is f32; the
+// output is written in q's dtype.  Rows must have valid[b] >= 1 (a row
+// with none gets zeros).
 //
-// Bound.  At decode shapes the work is a few FLOPs per K/V byte, far below
-// the card's ~295 operations per byte, so the kernel is bound by the bytes
-// of the VALID K/V it must read: sum_b valid[b] * Hkv * D * 2 * sizeof(T),
-// over 3.35 TB/s of HBM.  What the design does about it: each CTA reads only
-// the blocks that hold valid (and in-window) positions — the TPU grid's
-// per-block DMA through scalar-prefetched indices becomes the CTA reading
-// bt[b, j] itself and skipping every block wholly past valid[b] or wholly
-// before the window, whose softmax weight is exactly zero.  The G = Hq/Hkv
-// query heads that share a KV head sit in one CTA, so each K/V byte is read
-// once for all of them.  Tail table entries point at the trash block 0 and
-// stay masked; inactive slots still decode (valid >= 1) without faulting.
+// Bound.  Decode does a few FLOPs per K/V byte, far below the card's ~295
+// operations per byte, so it is bound by the bytes of the valid K/V:
+// sum_b valid[b] * Hkv * D * 2 * sizeof(T) over 3.35 TB/s; at the serving
+// shape (8 rows up to 512 tokens, Hkv 8, D 128, bf16) that is 7.7 MB,
+// 0.0023 ms.  The bytes are few and scattered over 16-token pages, so what
+// bounds a simple kernel is latency: the design keeps as many bytes in
+// flight as the card can take at once.
 //
-// Design (simple and correct first).  One CTA of 128 threads per (KV head
-// h, row b).  It keeps the G scaled query rows and the [G, D] accumulator
-// in shared memory as f32, and loops over the row's blocks: one warp per
-// token computes the G scores (lanes across D, shuffle reduction), one
-// thread per query head updates the running max / denominator, and one
-// thread per (g, d) rescales and accumulates p . v.  Not done yet (later
-// work): split-K across blocks for more CTAs in flight, 16-byte vector or
-// cp.async/TMA loads into a shared-memory ring, tensor-core products.
+// Design (flash-decoding).  The row's blocks are cut into splits of bps
+// blocks (split_plan in kernels/paged_attention.py, from the static shapes
+// B, Hkv, nbps and bs alone, never from valid: 8 splits of 4 x 16 tokens at
+// the serving shape, 8 x 8 x 8 = 512 CTAs for 132 SMs).  One CTA of 128
+// threads per (split s, KV head h, row b) reads its table entries, and
+// issues the whole split's K, then V, as 16-byte cp.async copies into
+// shared memory (a 128-wide bf16 head row is 16 lanes x 8 values), so
+// every byte of the split is in flight at once and V lands while the
+// scores on K are computed.  The G = Hq/Hkv query heads of the KV head sit
+// in one CTA, so each K/V byte serves all of them.  Scores: a group of
+// D*sizeof(T)/16 lanes per token, q in registers, the dot product reduced
+// by shuffles; the softmax statistics (max, sum) per query head by warp
+// reductions; P.V with each thread owning one 16-byte column chunk of a
+// subset of tokens, reduced by shuffles and across the 4 warps in shared
+// memory.  A split wholly past valid[b] or before the window exits at once
+// and writes an empty partial (m = -inf, l = 0).  A second kernel merges a
+// row's partials in f32: M = max m_s, w_s = exp(m_s - M) (0 for an empty
+// split, never exp(-inf - -inf)), O = sum w_s acc_s / sum w_s l_s.  With
+// one split the first kernel writes the output itself.  The wrapper
+// allocates the partials (torch.empty); the kernels allocate nothing.
+//
+// Times (chip_smoke.py phase 2, device time of both kernels, NVIDIA H100
+// 80GB HBM3, 700.00 W): 0.0115 ms at the serving shape against 0.0156 ms
+// for scaled_dot_product_attention over K/V gathered beforehand (0.74x)
+// and a 0.0023 ms bound; at 8 rows up to 2048 tokens 0.0278 ms against
+// 0.0344 ms.  In steady decode (chip_smoke.py --profile, 8 rows of
+// 128-176 tokens) the split kernel takes 0.0087 ms and the combine 0.0030
+// ms per call.  PERF.md section 6 keeps every reading.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -39,6 +59,38 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one 16-byte chunk as f32 values
+__device__ __forceinline__ void unpack(const float* p, float (&f)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+}
+__device__ __forceinline__ void unpack(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -48,147 +100,311 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// The blocks [j_lo, j_hi) of a row that hold a valid, in-window position.
+__device__ __forceinline__ void live_blocks(int vl, int bs, int nbps,
+                                            int window, int* j_lo, int* j_hi) {
+  *j_hi = min((vl + bs - 1) / bs, nbps);
+  *j_lo = (window > 0 && vl - window > 0) ? (vl - window) / bs : 0;
+}
+
+// shared memory of the split kernel: K and V of a split, its scores, the
+// cross-warp reduction and its table entries (kernels/paged_attention.py
+// mirrors this to refuse a shape before launch)
+template <typename T>
+size_t split_smem_bytes(int D, int G, int bs, int bps) {
+  const size_t tok = (size_t)bps * bs;
+  return 2 * tok * D * sizeof(T) + sizeof(float) * (G * tok + (size_t)kWarps * G * D)
+         + sizeof(int) * (size_t)bps;
+}
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int32_t* __restrict__ bt,
-                    const int32_t* __restrict__ valid, T* __restrict__ out,
-                    int Hkv, int bs, int nbps, int window, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;              // [G][D] scaled query rows
-  float* acc = q_s + G * D;       // [G][D] output accumulator
-  float* s = acc + G * D;         // [G][bs] scores, then probabilities
-  __shared__ float m_s[G], l_s[G], c_s[G];
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const int32_t* __restrict__ bt,
+                   const int32_t* __restrict__ valid, T* __restrict__ out,
+                   float* __restrict__ part, int Hkv, int bs, int nbps,
+                   int bps, int window, float scale) {
+  constexpr int kVec = 16 / sizeof(T);      // values per 16-byte chunk
+  constexpr int kL = D / kVec;              // lanes per token row
+  constexpr int kTpw = 32 / kL;             // tokens per warp step
+  static_assert(kL >= 1 && kL <= 32 && 32 % kL == 0, "head row vs warp");
+  const int ntok_max = bps * bs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);           // [ntok_max][D]
+  T* Vs = Ks + (size_t)ntok_max * D;                // [ntok_max][D]
+  float* sc = reinterpret_cast<float*>(Vs + (size_t)ntok_max * D);  // [G][ntok_max]
+  float* red = sc + G * ntok_max;                   // [kWarps][G][D]
+  int* blk = reinterpret_cast<int*>(red + kWarps * G * D);  // [bps]
+  __shared__ float m_s[G], l_s[G];
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  const int s = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nsplit = gridDim.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int ch = lane % kL;                 // this lane's 16-byte chunk
   const int Hq = Hkv * G;
+  T* orow = out + ((size_t)b * Hq + (size_t)h * G) * D;
+  float* pml = part + (((size_t)b * Hkv + h) * nsplit + s) * 2 * G;   // m, l
+  float* pacc = part + (size_t)gridDim.z * Hkv * nsplit * 2 * G +
+                (((size_t)b * Hkv + h) * nsplit + s) * G * D;
 
-  // q[b, 0, h*G + g, :] for g < G: G*D contiguous values
-  const T* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) {
-    q_s[e] = to_f32(qrow[e]) * scale;
-    acc[e] = 0.f;
-  }
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
+  // valid[b], the split's table entries and the q rows are independent
+  // reads: one round trip for all three
   const int vl = valid[b];
-  int j_hi = (vl + bs - 1) / bs;          // blocks at or past valid: skipped
-  if (j_hi > nbps) j_hi = nbps;
-  int j_lo = 0;                           // blocks before the window: skipped
-  if (window > 0 && vl - window > 0) j_lo = (vl - window) / bs;
-  const size_t tok = (size_t)Hkv * D;     // stride between a block's tokens
+  const int jb = s * bps;                   // the split's first column
+  const int my_blk = (tid < bps && jb + tid < nbps)
+                         ? bt[(size_t)b * nbps + jb + tid] : 0;
+  float qf[G][kVec];                        // this lane's chunk, scaled
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      qf[g][i] = to_f32(q[((size_t)b * Hq + h * G + g) * D + ch * kVec + i]) * scale;
+  int j_lo, j_hi;
+  live_blocks(vl, bs, nbps, window, &j_lo, &j_hi);
+  const int j0 = max(jb, j_lo);
+  const int j1 = min(jb + bps, j_hi);
+  if (j0 >= j1) {                           // an empty split
+    if (nsplit == 1) {
+      for (int e = tid; e < G * D; e += kThreads) store(orow + e, 0.f);
+    } else if (tid < G) {
+      pml[tid] = -INFINITY;
+      pml[G + tid] = 0.f;
+    }
+    return;
+  }
+  const int ntok = (j1 - j0) * bs;
+  if (tid < bps) blk[tid] = my_blk;
+  __syncthreads();
+  blk += j0 - jb;                           // blk[i]: the block of column j0 + i
+  const size_t tok_stride = (size_t)Hkv * D;
+  for (int c = tid; c < ntok * kL; c += kThreads) {
+    const int t = c / kL, cc = c - t * kL;
+    const int r = t % bs;
+    cp_async16(Ks + (size_t)t * D + cc * kVec,
+               kp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+  }
+  cp_async_commit();
+  for (int c = tid; c < ntok * kL; c += kThreads) {
+    const int t = c / kL, cc = c - t * kL;
+    const int r = t % bs;
+    cp_async16(Vs + (size_t)t * D + cc * kVec,
+               vp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();                       // K has landed; V in flight
   __syncthreads();
 
-  for (int j = j_lo; j < j_hi; ++j) {
-    const size_t blk = (size_t)bt[(size_t)b * nbps + j];
-    const T* kblk = kp + blk * bs * tok + (size_t)h * D;
-    const T* vblk = vp + blk * bs * tok + (size_t)h * D;
-
-    // scores: one warp per token, lanes across D
-    for (int t = warp; t < bs; t += kWarps) {
-      float part[G];
+  // scores: kL lanes per token, kTpw tokens per warp step
+  const int pos0 = j0 * bs;
+  for (int t0 = warp * kTpw; t0 < ntok; t0 += kWarps * kTpw) {
+    const int t = t0 + lane / kL;
+    float kf[kVec];
+    if (t < ntok) {
+      unpack(Ks + (size_t)t * D + ch * kVec, kf);
+    } else {
 #pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
-      const T* krow = kblk + (size_t)t * tok;
-      for (int d = lane; d < D; d += 32) {
-        const float kv = to_f32(krow[d]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) part[g] += q_s[g * D + d] * kv;
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float v = part[g];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        part[g] = v;
-      }
-      if (lane == 0) {
-        const int pos = j * bs + t;
-        bool ok = pos < vl;
-        if (window > 0) ok = ok && pos >= vl - window;
-#pragma unroll
-        for (int g = 0; g < G; ++g) s[g * bs + t] = ok ? part[g] : kNegInf;
-      }
+      for (int i = 0; i < kVec; ++i) kf[i] = 0.f;
     }
-    __syncthreads();
-
-    // online-softmax statistics: one thread per query head
-    if (tid < G) {
-      float* sg = s + tid * bs;
-      const float m_prev = m_s[tid];
-      float mx = m_prev;
-      for (int t = 0; t < bs; ++t) mx = fmaxf(mx, sg[t]);
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float p = expf(sg[t] - mx);
-        sg[t] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - mx);
-      l_s[tid] = l_s[tid] * corr + sum;
-      m_s[tid] = mx;
-      c_s[tid] = corr;
+    float dot[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) a += qf[g][i] * kf[i];
+#pragma unroll
+      for (int o = kL / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      dot[g] = a;
     }
-    __syncthreads();
-
-    // accumulator: one thread per (g, d), reading v coalesced across d
-    for (int e = tid; e < G * D; e += kThreads) {
-      const int g = e / D;
-      const int d = e - g * D;
-      const float* pg = s + g * bs;
-      float a = acc[e] * c_s[g];
-      for (int t = 0; t < bs; ++t) a += pg[t] * to_f32(vblk[(size_t)t * tok + d]);
-      acc[e] = a;
+    if (t < ntok && ch == 0) {
+      const int pos = pos0 + t;
+      const bool ok = pos < vl && (window == 0 || pos >= vl - window);
+#pragma unroll
+      for (int g = 0; g < G; ++g) sc[g * ntok_max + t] = ok ? dot[g] : kNegInf;
     }
-    __syncthreads();
   }
+  __syncthreads();
 
-  T* orow = out + ((size_t)b * Hq + (size_t)h * G) * D;
+  // softmax statistics of the split: one warp per query head
+  for (int g = warp; g < G; g += kWarps) {
+    float* sg = sc + g * ntok_max;
+    float mx = -INFINITY;
+    for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, sg[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int t = lane; t < ntok; t += 32) {
+      const float p = expf(sg[t] - mx);
+      sg[t] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  cp_async_wait<0>();                       // V has landed
+  __syncthreads();
+
+  // P.V: each thread one 16-byte column chunk over a subset of the tokens
+  float acc[G][kVec];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
+  for (int t = tid / kL; t < ntok; t += kThreads / kL) {
+    float vf[kVec];
+    unpack(Vs + (size_t)t * D + ch * kVec, vf);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = sc[g * ntok_max + t];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[g][i] += p * vf[i];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float a = acc[g][i];
+#pragma unroll
+      for (int o = 16; o >= kL; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      acc[g][i] = a;
+    }
+  if (lane < kL) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        red[(warp * G + g) * D + ch * kVec + i] = acc[g][i];
+  }
+  __syncthreads();
   for (int e = tid; e < G * D; e += kThreads) {
-    store(orow + e, acc[e] / fmaxf(l_s[e / D], 1e-30f));
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * G * D + e];
+    if (nsplit == 1) {
+      store(orow + e, a / fmaxf(l_s[e / D], 1e-30f));
+    } else {
+      pacc[e] = a;
+    }
   }
+  if (nsplit > 1 && tid < G) {
+    pml[tid] = m_s[tid];
+    pml[G + tid] = l_s[tid];
+  }
+}
+
+// Merge a row's split partials: one CTA per (KV head, row).  The
+// weights w_s = exp(m_s - M) per (split, query head) first, one warp per
+// head (an empty split gets w_s = 0, and a row with no live split
+// M = -inf and zeros); then each thread merges one 16-byte column chunk
+// over the splits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                     int B, int Hkv, int G, int D, int nsplit) {
+  extern __shared__ float wsm[];            // [nsplit][G] weights, [G] 1/den
+  float* inv_den = wsm + nsplit * G;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t base = ((size_t)b * Hkv + h) * nsplit;
+  const float* pml = part + base * 2 * G;
+  const float* pacc = part + (size_t)B * Hkv * nsplit * 2 * G + base * G * D;
+  for (int g = warp; g < G; g += kWarps) {
+    float M = -INFINITY;
+    for (int s = lane; s < nsplit; s += 32) M = fmaxf(M, pml[s * 2 * G + g]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float den = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float ms = pml[s * 2 * G + g];
+      const float w = ms == -INFINITY ? 0.f : expf(ms - M);
+      wsm[s * G + g] = w;
+      den += w * pml[s * 2 * G + G + g];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
+    if (lane == 0) inv_den[g] = 1.f / fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  T* orow = out + ((size_t)b * Hkv * G + (size_t)h * G) * D;
+  for (int e = threadIdx.x * 4; e < G * D; e += kThreads * 4) {
+    const int g = e / D;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    // every split's chunk is loaded, live or not, so the loads issue
+    // together; an empty split's (unwritten) chunk is selected away, so
+    // it adds exactly 0
+#pragma unroll 8
+    for (int s = 0; s < nsplit; ++s) {
+      const float4 a = *reinterpret_cast<const float4*>(pacc + (size_t)s * G * D + e);
+      const float w = wsm[s * G + g];
+      if (w != 0.f) {
+        num.x += w * a.x; num.y += w * a.y; num.z += w * a.z; num.w += w * a.w;
+      }
+    }
+    const float r = inv_den[g];
+    store(orow + e, num.x * r);
+    store(orow + e + 1, num.y * r);
+    store(orow + e + 2, num.z * r);
+    store(orow + e + 3, num.w * r);
+  }
+}
+
+template <typename T, int D, int G>
+cudaError_t launch_g(const void* q, const void* kp, const void* vp,
+                     const void* bt, const void* valid, void* out, void* part,
+                     int B, int Hkv, int bs, int nbps, int bps, int nsplit,
+                     int window, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes<T>(D, G, bs, bps);
+  // above 48 KB a CTA's dynamic shared memory must be asked for
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_split_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  paged_split_kernel<T, D, G><<<dim3(nsplit, Hkv, B), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
+      (const int32_t*)valid, (T*)out, (float*)part, Hkv, bs, nbps, bps,
+      window, rsqrtf((float)D));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  paged_combine_kernel<T><<<dim3(Hkv, B), kThreads,
+                            sizeof(float) * (size_t)(nsplit + 1) * G, stream>>>(
+      (const float*)part, (T*)out, B, Hkv, G, D, nsplit);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* kp, const void* vp,
-                     const void* bt, const void* valid, void* out, int B,
-                     int Hkv, int G, int bs, int nbps, int window,
-                     cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  const size_t smem = sizeof(float) * (size_t)(2 * G * D + G * bs);
-  const float scale = rsqrtf((float)D);
-#define REPRO_PA_LAUNCH(GG)                                                  \
-  paged_decode_kernel<T, D, GG><<<grid, kThreads, smem, stream>>>(          \
-      (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,          \
-      (const int32_t*)valid, (T*)out, Hkv, bs, nbps, window, scale)
+                     const void* bt, const void* valid, void* out, void* part,
+                     int B, int Hkv, int G, int bs, int nbps, int bps,
+                     int nsplit, int window, cudaStream_t stream) {
   switch (G) {
-    case 1: REPRO_PA_LAUNCH(1); break;
-    case 2: REPRO_PA_LAUNCH(2); break;
-    case 4: REPRO_PA_LAUNCH(4); break;
-    case 8: REPRO_PA_LAUNCH(8); break;
+    case 1: return launch_g<T, D, 1>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
+    case 2: return launch_g<T, D, 2>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
+    case 4: return launch_g<T, D, 4>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
+    case 8: return launch_g<T, D, 8>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
     default: return cudaErrorInvalidValue;
   }
-#undef REPRO_PA_LAUNCH
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_t(const void* q, const void* kp, const void* vp,
-                     const void* bt, const void* valid, void* out, int B,
-                     int Hkv, int G, int D, int bs, int nbps, int window,
-                     cudaStream_t stream) {
+                     const void* bt, const void* valid, void* out, void* part,
+                     int B, int Hkv, int G, int D, int bs, int nbps, int bps,
+                     int nsplit, int window, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16>(q, kp, vp, bt, valid, out, B, Hkv, G, bs, nbps, window, stream);
-    case 32: return launch_d<T, 32>(q, kp, vp, bt, valid, out, B, Hkv, G, bs, nbps, window, stream);
-    case 64: return launch_d<T, 64>(q, kp, vp, bt, valid, out, B, Hkv, G, bs, nbps, window, stream);
-    case 128: return launch_d<T, 128>(q, kp, vp, bt, valid, out, B, Hkv, G, bs, nbps, window, stream);
+    case 16: return launch_d<T, 16>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
+    case 32: return launch_d<T, 32>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
+    case 64: return launch_d<T, 64>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
+    case 128: return launch_d<T, 128>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -196,17 +412,26 @@ cudaError_t launch_t(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 on success).
+// bps blocks per split, nsplit = ceil(nbps / bps) splits; part: f32
+// scratch of B * Hkv * nsplit * G * (2 + D) values when nsplit > 1.  K/V
+// are read as 16-byte vectors: kp and vp must be 16-byte aligned.  One
+// call launches the split kernel and, when nsplit > 1, the combine kernel.
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int repro_paged_attention(const void* q, const void* kp,
                                      const void* vp, const void* bt,
-                                     const void* valid, void* out, int B,
-                                     int Hkv, int G, int D, int bs, int nbps,
-                                     int window, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || bs <= 0 || nbps <= 0) return (int)cudaErrorInvalidValue;
+                                     const void* valid, void* out, void* part,
+                                     int B, int Hkv, int G, int D, int bs,
+                                     int nbps, int bps, int nsplit, int window,
+                                     int dtype, void* stream) {
+  if (B <= 0 || Hkv <= 0 || bs <= 0 || nbps <= 0 || bps <= 0 ||
+      bps > kThreads || nsplit != (nbps + bps - 1) / bps || nsplit > 65535 ||
+      Hkv > 65535 || B > 65535 || (nsplit + 1) * G > 12288 ||
+      (nsplit > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_t<float>(q, kp, vp, bt, valid, out, B, Hkv, G, D, bs, nbps, window, st);
+    return (int)launch_t<float>(q, kp, vp, bt, valid, out, part, B, Hkv, G, D, bs, nbps, bps, nsplit, window, st);
   if (dtype == 1)
-    return (int)launch_t<__nv_bfloat16>(q, kp, vp, bt, valid, out, B, Hkv, G, D, bs, nbps, window, st);
+    return (int)launch_t<__nv_bfloat16>(q, kp, vp, bt, valid, out, part, B, Hkv, G, D, bs, nbps, bps, nsplit, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,19 +5,24 @@ Causal / sliding-window / GQA online-softmax attention over q
 from 0 on both axes).  The kernel (``csrc/flash_attention.cu``, CUDA C++
 for ``sm_90a``) replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py:_attn_kernel``: one CTA per (b, h,
-64-query tile) streams 32-key K/V tiles through shared memory with an f32
-online softmax and skips tiles no row of it can attend to.  Ragged tails
-are masked in the kernel, so every length the reference accepts works.
+64-query tile) streams K/V tiles through shared memory with an f32 online
+softmax and skips tiles no row of it can attend to.  bfloat16 runs on the
+tensor cores (``wgmma`` on 64-key tiles that ``cp.async`` copies into
+shared memory) and rounds P to bf16 before P·V, so it matches the plain
+version within the bf16 tolerance (2e-2), not bit for bit; float32 stays
+exact f32 on the CUDA cores.  Ragged tails are masked in the kernel, so
+every length the reference accepts works.
 
 The wrapper checks device, dtypes and shapes and raises on anything the
 kernel does not take.  A CUDA tensor launches the kernel (or raises); a
 CPU tensor runs the plain version (``ref.ref_attention``), because a CPU
 tensor means the caller asked for the CPU.  There is no fallback from the
-one to the other.  The kernel reads q/k/v as contiguous arrays, so the
-wrapper makes them contiguous: a no-op for the co-execution path, whose
-``kernel.attention`` node hands it ``q[:, None]`` views of contiguous
-``[B*H, S, D]`` tensors, and one copy of each strided input otherwise.
-``flash_attention.launches`` counts kernel launches.
+one to the other.  The kernel reads q/k/v as contiguous, 16-byte aligned
+arrays, so the wrapper makes them so: a no-op for the co-execution path,
+whose ``kernel.attention`` node hands it ``q[:, None]`` views of
+contiguous ``[B*H, S, D]`` tensors, and one copy of each strided or
+misaligned input otherwise.  ``flash_attention.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -43,6 +48,11 @@ def _entry():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _aligned(t):
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _check(q, k, v, window):
@@ -88,7 +98,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * Sq == 0:
         return out
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, H, Hkv, Sq, Skv, D, int(bool(causal)), int(window),
                    _DTYPES[q.dtype],

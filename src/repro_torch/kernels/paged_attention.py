@@ -4,18 +4,24 @@ Single-token decode over a paged KV cache: K/V live in a flat arena of
 ``[num_blocks, bs, Hkv, D]`` fixed-size blocks and each batch row owns a
 block table ``bt[b, j] -> arena block id``.  The kernel
 (``csrc/paged_attention.cu``, CUDA C++ for ``sm_90a``) replaces the TPU
-kernel ``src/repro/kernels/paged_attention.py:_paged_kernel``: one CTA per
-(KV head, row) reads the row's table itself and streams only the blocks
-that hold valid positions through an f32 online softmax.  Rows shorter
-than ``nbps`` blocks point their tail table entries at the trash block 0;
-those positions are masked and never read.
+kernel ``src/repro/kernels/paged_attention.py:_paged_kernel`` with a
+split-K (flash-decoding) design: :func:`split_plan` cuts each row's
+blocks into splits from the static shapes alone, one CTA per (split, KV
+head, row) reads the row's table itself, copies only the blocks that hold
+valid positions into shared memory and runs an f32 softmax over them, and
+a second kernel merges each row's partials.  Rows shorter than ``nbps``
+blocks point their tail table entries at the trash block 0; those
+positions are masked and never read.
 
 The wrapper checks device, dtype, shapes and contiguity and raises on
-anything the kernel does not take.  A CUDA tensor launches the kernel (or
-raises); a CPU tensor runs the plain version (``ref.ref_paged_attention``),
-because a CPU tensor means the caller asked for the CPU.  There is no
-fallback from the one to the other.  ``paged_attention.launches`` counts
-kernel launches.
+anything the kernel does not take.  It never reads a device tensor on the
+host (``valid`` changes every decode step; a read would sync each layer).
+A CUDA tensor launches the kernels (or raises); a CPU tensor runs the
+plain version (``ref.ref_paged_attention``), because a CPU tensor means
+the caller asked for the CPU.  There is no fallback from the one to the
+other.  ``paged_attention.launches`` counts wrapper calls that reached
+the card, one per layer per decode step: one call launches the split
+kernel and, when a row has more than one split, the combine kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +36,30 @@ NAME = "paged_attention"
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024             # default dynamic shared memory per CTA
+SMEM_LIMIT = 232448                 # an H100 CTA's shared memory (227 KB)
+SPLIT_TOKENS = 64                   # cache positions a split aims to cover
+MIN_CTAS = 2 * 132                  # two CTAs for each of the H100's SMs
+_WARPS = 4                          # csrc kWarps
+
+
+def split_plan(B: int, Hkv: int, nbps: int, bs: int):
+    """(splits per row, blocks per split) from the static shapes alone.
+
+    A split covers ``SPLIT_TOKENS`` positions (one block when a block is
+    larger); it halves while the grid of ``B * Hkv * splits`` CTAs is
+    smaller than ``MIN_CTAS``.  Split s covers table columns
+    ``[s * bps, min((s + 1) * bps, nbps))``."""
+    bps = max(1, min(nbps, SPLIT_TOKENS // bs))
+    while bps > 1 and B * Hkv * -(-nbps // bps) < MIN_CTAS:
+        bps //= 2
+    return -(-nbps // bps), bps
+
+
+def split_smem_bytes(D: int, G: int, bs: int, bps: int, itemsize: int):
+    """Shared memory of one split CTA (csrc split_smem_bytes): K and V of
+    the split, its scores, the cross-warp sums and its table entries."""
+    tok = bps * bs
+    return 2 * tok * D * itemsize + 4 * (G * tok + _WARPS * G * D) + 4 * bps
 
 
 def _entry():
@@ -39,7 +68,7 @@ def _entry():
     if fn.argtypes is None:
         # every pointer and the stream as c_void_p: a bare Python int
         # would be passed as a 32-bit int and cut the pointer
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -81,18 +110,29 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
     if D not in HEAD_DIMS or G not in GROUPS:
         raise ValueError(f"paged_attention kernel takes D in {HEAD_DIMS} "
                          f"and Hq/Hkv in {GROUPS}, got D={D}, G={G}")
-    if 4 * (2 * G * D + G * bs) > _SMEM_LIMIT:
-        raise ValueError(f"block size {bs} needs more shared memory than "
-                         f"the kernel's {_SMEM_LIMIT} bytes")
+    nsplit, bps = split_plan(B, Hkv, nbps, bs)
+    smem = split_smem_bytes(D, G, bs, bps, q.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"block size {bs} needs {smem} bytes of shared "
+                         f"memory per CTA, more than the kernel's "
+                         f"{SMEM_LIMIT}")
     if not (q.is_contiguous() and kp.is_contiguous()
             and vp.is_contiguous()):
         raise ValueError("paged_attention needs contiguous q, kp and vp")
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("paged_attention reads kp/vp as 16-byte vectors: "
+                         "they must be 16-byte aligned")
     bt = bt.to(torch.int32).contiguous()
     valid = valid.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    # the split partials: (m, l) per query head, then the f32 accumulators
+    part = (torch.empty(B * Hkv * nsplit * G * (2 + D), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     err = _entry()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                    bt.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                   B, Hkv, G, D, bs, nbps, int(window), _DTYPES[q.dtype],
+                   None if part is None else part.data_ptr(),
+                   B, Hkv, G, D, bs, nbps, bps, nsplit, int(window),
+                   _DTYPES[q.dtype],
                    torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

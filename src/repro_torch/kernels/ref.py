@@ -14,6 +14,68 @@ import torch
 NEG_INF = -1e30
 
 
+# The shapes and tolerances at which the attention kernels are held
+# against their plain versions and the JAX reference (tests and
+# chip_smoke.py).  Flash: tests/test_kernels.py:17-25 (ATTN_SWEEP), plus
+# the causal Sq != Skv case the reference's test skips (positions count
+# from 0 on both axes), and the cases the 64-row / 64-key tiles make
+# risky.  ATTN_SWEEP holds what the reference's Pallas kernel runs in
+# interpret mode on the CPU at a test's pace; CARD_ONLY_ATTN holds ragged
+# shapes whose interpret-mode grids (blocks halved to 1 or 2 rows) are too
+# slow there.
+ATTN_SWEEP = [
+    # (B, H, Hkv, Sq, Skv, D, causal, window)
+    (1, 4, 4, 128, 128, 64, True, 0),
+    (2, 8, 2, 256, 256, 64, True, 0),          # GQA
+    (1, 4, 1, 128, 128, 128, True, 0),         # MQA
+    (2, 4, 4, 128, 128, 64, False, 0),         # bidirectional
+    (1, 4, 2, 256, 256, 64, True, 64),         # sliding window
+    (1, 2, 2, 64, 256, 64, False, 0),          # cross-shape (Sq != Skv)
+    (1, 2, 2, 64, 256, 64, True, 0),           # causal, Sq != Skv
+    (1, 2, 1, 64, 130, 32, False, 0),          # Skv not a multiple of 64
+    (1, 2, 2, 128, 65, 64, False, 0),          # one key in the last tile
+    (1, 4, 2, 1, 130, 64, False, 0),           # Sq = 1 (a decode row)
+    (1, 2, 2, 1, 64, 64, True, 0),             # Sq = 1 causal: key 0 only
+    (1, 2, 2, 128, 128, 64, True, 1),          # window 1: its own key
+    (1, 2, 2, 64, 128, 16, True, 0),           # D 16, causal Sq < Skv
+    (1, 2, 1, 128, 64, 32, True, 0),           # D 32, causal Sq > Skv
+]
+CARD_ONLY_ATTN = [
+    (2, 2, 1, 100, 37, 32, False, 16),         # ragged; rows past every key
+    (1, 2, 2, 77, 77, 16, True, 0),            # ragged causal
+    (1, 2, 2, 65, 130, 64, True, 0),           # ragged both, causal
+    (2, 4, 2, 200, 200, 64, True, 100),        # ragged, window > a tile
+    (1, 2, 2, 1, 1, 128, True, 0),             # one query, one key
+    (1, 2, 2, 130, 130, 128, True, 1),         # window 1, ragged
+    (1, 2, 1, 100, 37, 128, True, 16),         # causal rows past every key
+]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# Paged decode: (B, Hkv, G, D, bs, nbps, nblocks, valid) with each window
+# of PAGED_WINDOWS.  The tests/test_paged.py shape with G in {1, 4}, a
+# wider one with ragged rows and trash tails, and shapes whose split plan
+# (kernels/paged_attention.split_plan) cuts rows into multi-block splits:
+# valid = 1, valid on a split boundary, a full row (nbps * bs), windows
+# shorter and longer than a split, G in {1, 2, 4, 8}, bs in {8, 16, 32},
+# and a one-block table, whose single split writes the output itself.
+# PAGED_SERVING is the serving path's own shape (llama3-8b heads, 8 slots
+# x 512 tokens in 16-token pages), PAGED_LONG a longer cache.
+PAGED_SWEEP = [
+    (3, 2, 1, 16, 8, 4, 9, [5, 9, 16]),
+    (3, 2, 4, 16, 8, 4, 9, [5, 9, 16]),
+    (4, 2, 8, 64, 16, 4, 12, [1, 16, 17, 40]),
+    (8, 8, 2, 16, 16, 32, 257, [1, 64, 65, 128, 300, 511, 512, 17]),
+    (8, 8, 1, 16, 8, 16, 129, [1, 16, 17, 128, 33, 64, 100, 127]),
+    (4, 2, 8, 32, 32, 8, 33, [1, 32, 33, 256]),
+    (2, 2, 4, 32, 16, 1, 3, [5, 16]),            # one split: no combine
+]
+PAGED_WINDOWS = (0, 6, 100)
+PAGED_SERVING = (8, 8, 4, 128, 16, 32, 257,
+                 [1, 17, 100, 255, 256, 300, 444, 512])
+PAGED_LONG = (8, 8, 4, 128, 16, 128, 1025,
+              [1, 100, 500, 1000, 1500, 1800, 2047, 2048])
+
+
 def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: [B,H,Sq,D]; k/v: [B,Hkv,Skv,D]; GQA by head grouping.
     Returns [B,H,Sq,D] (f32 accumulation, cast back to q.dtype)."""

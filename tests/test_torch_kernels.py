@@ -15,32 +15,19 @@ card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
 
+import importlib.util
+import math
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.kernels.ref import ref_attention, ref_rmsnorm  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    ATTN_SWEEP, ATTN_TOL, CARD_ONLY_ATTN, ref_attention, ref_rmsnorm)
 
-# tests/test_kernels.py:17-25, plus the causal Sq != Skv case the
-# reference's test skips (positions count from 0 on both axes) and a
-# window whose last rows reach no key (the plain version's uniform row)
-ATTN_SWEEP = [
-    # (B, H, Hkv, Sq, Skv, D, causal, window)
-    (1, 4, 4, 128, 128, 64, True, 0),
-    (2, 8, 2, 256, 256, 64, True, 0),          # GQA
-    (1, 4, 1, 128, 128, 128, True, 0),         # MQA
-    (2, 4, 4, 128, 128, 64, False, 0),         # bidirectional
-    (1, 4, 2, 256, 256, 64, True, 64),         # sliding window
-    (1, 2, 2, 64, 256, 64, False, 0),          # cross-shape (Sq != Skv)
-    (1, 2, 2, 64, 256, 64, True, 0),           # causal, Sq != Skv
-]
-CARD_ONLY_ATTN = [
-    (2, 2, 1, 100, 37, 32, False, 16),         # ragged; rows past every key
-    (1, 2, 2, 77, 77, 16, True, 0),            # ragged causal
-]
 RMS_SHAPES = [(4, 128), (2, 16, 256), (64, 512)]   # tests/test_kernels.py:77
-TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_RMS = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -109,9 +96,74 @@ def test_flash_attention_matches_reference_kernel(case, dtype, jax_ref):
                                 causal=causal, window=window,
                                 q_block=64, kv_block=64)
     assert got.dtype == getattr(torch, dtype)
-    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL_ATTN[dtype],
-                               atol=TOL_ATTN[dtype])
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
     assert kops.flash_attention.launches == 0       # the CPU launches nothing
+
+
+def flash_bf16p(q, k, v, *, causal=True, window=0, tile=64):
+    """The bf16 kernel's arithmetic in plain torch: 64-key tiles, scores
+    scaled by D^-0.5 * log2(e) in f32 and then masked, an online softmax
+    in base 2, P rounded to bf16 before P.V (the row sum over the
+    unrounded P), the output acc / max(l, 1e-30) in q's dtype."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, H // Hkv, Sq, D)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full(qf.shape[:-1], -1e30)
+    l = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, Skv, tile):
+        kt, vt = k[:, :, k0:k0 + tile].float(), v[:, :, k0:k0 + tile].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * (
+            D ** -0.5 * math.log2(math.e))
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_SWEEP)
+def test_bf16_p_emulation_matches_reference_kernel(case, jax_ref):
+    """Rounding P to bf16 before P.V (the tensor-core kernel's numerics)
+    stays within the reference tests' bf16 contract (2e-2) of the Pallas
+    kernel, which rounds nothing."""
+    jnp, jops = jax_ref
+    causal, window = case[6], case[7]
+    arrs = _attn_inputs(case)
+    got = flash_bf16p(*(_t(a, "bfloat16") for a in arrs), causal=causal,
+                      window=window)
+    want = jops.flash_attention(*(jnp.asarray(a).astype("bfloat16")
+                                  for a in arrs), causal=causal,
+                                window=window, q_block=64, kv_block=64)
+    assert not torch.isnan(got.float()).any()
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=ATTN_TOL["bfloat16"],
+                               atol=ATTN_TOL["bfloat16"])
+
+
+def test_bf16_p_emulation_covers_rows_past_every_key():
+    """The card-only ragged cases (no Pallas run here): the emulation
+    against the plain version, in f32 inputs so that only P's rounding
+    differs."""
+    for case in CARD_ONLY_ATTN:
+        q, k, v = (_t(a, "float32") for a in _attn_inputs(case))
+        q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+        got = flash_bf16p(q, k, v, causal=case[6], window=case[7])
+        want = ref_attention(q, k, v, causal=case[6], window=case[7])
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL["bfloat16"],
+                                   atol=ATTN_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -157,7 +209,7 @@ def test_cuda_flash_attention_matches_plain_version(dtype, card):
         out = kops.flash_attention(q, k, v, causal=case[6], window=case[7])
         ref = ref_attention(q, k, v, causal=case[6], window=case[7])
         torch.testing.assert_close(out.float(), ref.float(),
-                                   rtol=TOL_ATTN[dtype], atol=TOL_ATTN[dtype])
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
         assert kops.flash_attention.launches == before + 1
 
 
@@ -171,3 +223,31 @@ def test_cuda_rmsnorm_matches_plain_version(dtype, card):
         torch.testing.assert_close(out.float(), ref_rmsnorm(x, g).float(),
                                    rtol=TOL_RMS[dtype], atol=TOL_RMS[dtype])
         assert kops.rmsnorm.launches == before + 1
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_5ce215f818paged_split_kernelI13__nv_bfloat16Li128ELi4EEEvPKT_S4_S4_PKiS6_PS2_Pfiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_5ce215f818paged_split_kernelI13__nv_bfloat16Li128ELi4EEEvPKT_S4_S4_PKiS6_PS2_Pfiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_5ce215f820paged_combine_kernelI13__nv_bfloat16EEvPKfPT_iiiii' for 'sm_90a'
+    24 bytes stack frame, 40 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1816flash_f32_kernelILi128EEEvPKfS2_S2_Pfiiiiiif' for 'sm_90a'
+ptxas info    : Used 103 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
+    """chip_smoke.py logs each kernel's registers and spills from nvcc's
+    ``-Xptxas -v`` output, with the mangled names shortened."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.ptxas_entries(PTXAS_LOG) == [
+        ("paged_split_kernel<bf16,128,4>", 64, 0),
+        ("paged_combine_kernel<bf16>", 32, 40),
+        ("flash_f32_kernel<128>", 103, 0),
+    ]

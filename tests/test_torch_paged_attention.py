@@ -18,9 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
-from repro_torch.kernels.ref import ref_paged_attention  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    ATTN_TOL, PAGED_LONG, PAGED_SERVING, PAGED_SWEEP, PAGED_WINDOWS,
+    ref_paged_attention)
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = ATTN_TOL
 
 
 @pytest.fixture(scope="module")
@@ -62,13 +64,11 @@ def _inputs(B, Hq, Hkv, D, bs, nbps, nblocks, valid, seed):
     return q, kp, vp, bt, np.asarray(valid, np.int32)
 
 
-# (B, Hkv, G, D, bs, nbps, nblocks, valid): the tests/test_paged.py shape
-# with G in {1, 4}, plus a wider one with ragged rows and trash tails
-SHAPES = [
-    (3, 2, 1, 16, 8, 4, 9, [5, 9, 16]),
-    (3, 2, 4, 16, 8, 4, 9, [5, 9, 16]),
-    (4, 2, 8, 64, 16, 4, 12, [1, 16, 17, 40]),
-]
+SHAPES = PAGED_SWEEP
+
+
+def _shape_id(s):
+    return f"G{s[2]}-D{s[3]}" + (f"-bs{s[4]}-nbps{s[5]}" if s[5] != 4 else "")
 
 
 def _torch(a, dtype):
@@ -92,8 +92,8 @@ def _jax_in(jnp, q, kp, vp, bt, vl, dtype):
             jnp.asarray(bt), jnp.asarray(vl)]
 
 
-@pytest.mark.parametrize("window", [0, 6])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"G{s[2]}-D{s[3]}")
+@pytest.mark.parametrize("window", PAGED_WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_reference_oracle(jax_ref, shape, window, dtype):
     jnp, _, jref = jax_ref
@@ -134,22 +134,120 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         PA.paged_attention(args[0][:, 0], *args[1:])         # not [B,1,H,D]
 
 
+def split_k(q, kp, vp, bt, vl, window=0):
+    """The kernel's split-K decomposition in plain f32 torch, with the
+    wrapper's own split plan: per split (m, l, acc) over its live blocks
+    (masked positions -1e30), an empty split (m = -inf, l = 0), then the
+    combine M = max m_s, w_s = exp(m_s - M) (0 when empty), O = sum w_s
+    acc_s / sum w_s l_s.  Returns (out, number of empty splits)."""
+    B, _, Hq, D = q.shape
+    bs, Hkv, nbps = kp.shape[1], kp.shape[2], bt.shape[1]
+    G = Hq // Hkv
+    nsplit, bps = PA.split_plan(B, Hkv, nbps, bs)
+    qs = q.float().reshape(B, Hkv, G, D) * D ** -0.5
+    out = torch.zeros(B, Hkv, G, D)
+    empty = 0
+    for b in range(B):
+        v = int(vl[b])
+        j_hi = min(-(-v // bs), nbps)
+        j_lo = (v - window) // bs if window and v - window > 0 else 0
+        ms, ls, accs = [], [], []
+        for s in range(nsplit):
+            j0, j1 = max(s * bps, j_lo), min((s + 1) * bps, j_hi)
+            if j0 >= j1:
+                empty += 1
+                ms.append(torch.full((Hkv, G), -torch.inf))
+                ls.append(torch.zeros(Hkv, G))
+                accs.append(torch.zeros(Hkv, G, D))
+                continue
+            blocks = bt[b, j0:j1].long()
+            k = kp[blocks].reshape(-1, Hkv, D).float()
+            vv = vp[blocks].reshape(-1, Hkv, D).float()
+            pos = torch.arange(j0 * bs, j1 * bs)
+            ok = pos < v
+            if window:
+                ok &= pos >= v - window
+            sc = torch.where(ok, torch.einsum("hgd,thd->hgt", qs[b], k),
+                             -1e30)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("hgt,thd->hgd", p, vv))
+        m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        M = m.amax(0)
+        w = torch.where(m == -torch.inf, 0.0, torch.exp(m - M))
+        out[b] = ((w[..., None] * acc).sum(0)
+                  / (w * l).sum(0).clamp_min(1e-30)[..., None])
+    return out.reshape(B, 1, Hq, D), empty
+
+
+@pytest.mark.parametrize("window", PAGED_WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_split_k_decomposition_matches_plain_and_reference(jax_ref, shape,
+                                                           window):
+    jnp, jops, jref = jax_ref
+    B, Hkv, G, D, bs, nbps, nblocks, valid = shape
+    x = _inputs(B, Hkv * G, Hkv, D, bs, nbps, nblocks, valid,
+                seed=G + window)
+    got, empty = split_k(*(torch.from_numpy(a) for a in x), window=window)
+    assert not torch.isnan(got).any()
+    nsplit, bps = PA.split_plan(B, Hkv, nbps, bs)
+    if nsplit > 1 and min(valid) <= bps * bs:
+        assert empty > 0          # a short row leaves its later splits empty
+    plain = _port(*x, "float32", window)
+    oracle = np.asarray(jref.ref_paged_attention(
+        *_jax_in(jnp, *x, "float32"), window=window), np.float32)
+    kernel = np.asarray(jops.paged_attention(
+        *_jax_in(jnp, *x, "float32"), window=window), np.float32)
+    for want in (plain, oracle, kernel):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [PAGED_SERVING, PAGED_LONG],
+                         ids=lambda s: f"B{s[0]}-Hkv{s[1]}-bs{s[4]}-nbps{s[5]}")
+def test_split_plan_covers_every_block_once(shape):
+    B, Hkv, _, _, bs, nbps, _, _ = shape
+    nsplit, bps = PA.split_plan(B, Hkv, nbps, bs)
+    cols = [c for s in range(nsplit)
+            for c in range(s * bps, min((s + 1) * bps, nbps))]
+    assert cols == list(range(nbps))            # every block exactly once
+    assert (nsplit - 1) * bps < nbps            # no split wholly past nbps
+    if shape is PAGED_SERVING:
+        assert (nsplit, bps) == (8, 4)
+        assert B * Hkv * nsplit >= 264          # two CTAs per SM
+
+
+def test_wrapper_never_reads_valid_on_the_host():
+    """The plan comes from static shapes: the card path reads no device
+    tensor on the host (no .item(), .tolist() or .cpu() of valid)."""
+    import inspect
+    src = inspect.getsource(PA.paged_attention)
+    for call in (".item()", ".tolist()", ".cpu()", ".numpy()", "int(valid"):
+        assert call not in src
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """Needs an sm_90 card; ``python3 chip_smoke.py`` runs the same check
-    (and more shapes) there."""
+    there, with timings."""
     if not torch.cuda.is_available() or \
             torch.cuda.get_device_capability() < (9, 0):
         pytest.skip("needs a Hopper (sm_90) CUDA card; chip_smoke.py "
                     "covers the kernel against its plain version on the card")
-    for dtype in ("float32", "bfloat16"):
-        q, kp, vp, bt, vl = _inputs(8, 32, 8, 128, 16, 32, 257,
-                                    [1, 17, 100, 255, 256, 300, 444, 512], 3)
+    cases = [(s, w) for s in SHAPES for w in PAGED_WINDOWS]
+    cases += [(PAGED_SERVING, 0), (PAGED_SERVING, 100), (PAGED_LONG, 0)]
+    for i, (shape, window, dtype) in enumerate(
+            (s, w, d) for s, w in cases for d in TOL):
         tdt = getattr(torch, dtype)
-        args = [_torch(q, tdt).cuda(), _torch(kp, tdt).cuda(),
-                _torch(vp, tdt).cuda(), torch.from_numpy(bt).cuda(),
-                torch.from_numpy(vl).cuda()]
-        out = PA.paged_attention(*args)
-        ref = ref_paged_attention(*args)
+        B, Hkv, G, D, bs, nbps, nblocks, valid = shape
+        x = _inputs(B, Hkv * G, Hkv, D, bs, nbps, nblocks, valid, seed=i)
+        args = [_torch(a, tdt).cuda() for a in x[:3]] + \
+            [torch.from_numpy(a).cuda() for a in x[3:]]
+        before = PA.paged_attention.launches
+        out = PA.paged_attention(*args, window=window)
+        ref = ref_paged_attention(*args, window=window)
         torch.testing.assert_close(out.float(), ref.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+        assert not torch.isnan(out.float()).any()
+        assert PA.paged_attention.launches == before + 1
