@@ -17,7 +17,17 @@ Phases, in order; any failure exits non-zero and prints no result:
               row keeps the median of each) and the least time the card
               could take (the bound); flash also at
               1024 tokens and paged also at 8 rows up to 2048 tokens
-              (logged).  The build log's registers and spills per kernel.
+              (logged).  rmsnorm over ``RMS_SWEEP`` (both of its
+              kernels), then the register kernel's CTA shapes in turns
+              (logged).  The SSD scan over ``SSD_SWEEP``, also against
+              its own decomposition (``ref.ssd_chunk_parallel``), and
+              timed at both path shapes (the prefill [1, 1024] and the
+              forward [4, 2048]): CUDA-event time per call beside the
+              device time summed over the call's three kernels, split per
+              kernel, with the scratch bytes, and with other head groups
+              in turns (logged; the row: the default's median device
+              time).  The build log's registers and spills per kernel
+              (every rmsnorm and SSD kernel).
 3. serving  — llama3-8b at its published width and depth (random bf16
               weights from a seed) served by the co-executed paged
               continuous-batching scheduler with the ``kernels`` pass: 12
@@ -54,9 +64,10 @@ Phases, in order; any failure exits non-zero and prints no result:
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
               then also profiles two calls of each scoring program (the
-              flash kernel's device time per call),
+              flash and rmsnorm kernels' device time per call),
               and mamba2 serving is timed and profiled over batches of 16
-              requests (prompts 512-527, 64 new tokens).
+              requests (prompts 512-527, 64 new tokens; the SSD kernels'
+              device time per batch).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -118,9 +129,16 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device milliseconds per call of ``fn()``: the summed device
-    time of the kernels it launched, from a torch.profiler window.  For
-    work shorter than its own launch, where back-to-back CUDA-event timing
+    time of the kernels it launched (:func:`device_split`).  For work
+    shorter than its own launch, where back-to-back CUDA-event timing
     measures the host's launch rate instead."""
+    return device_split(fn, iters, warmup)[0]
+
+
+def device_split(fn, iters: int, warmup: int = 3):
+    """(total, {kernel: ms}) per call of ``fn()``: the device time of each
+    kernel it launched, from one torch.profiler window, for a call that
+    launches several kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -131,9 +149,15 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(_device_us(e) for e in prof.key_averages())
-        if total > 0:
-            return total / 1e3 / iters
+        split = {}
+        for e in prof.key_averages():
+            us = _device_us(e)
+            if us > 0:
+                key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                             e.key)
+                split[key] = split.get(key, 0.0) + us / 1e3 / iters
+        if split:
+            return sum(split.values()), split
     raise SmokeFailure("the profiler recorded no device time")
 
 
@@ -189,18 +213,24 @@ def ptxas_entries(text):
 
 
 def _short_kernel(mangled: str) -> str:
-    m = re.search(r"_kernelI(.*?)EEv", mangled)
-    if not m:
+    """``name<args>`` of a kernel in the anonymous namespace from its
+    mangled name: bf16, f32 and integer template arguments."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    n = m and re.compile(r"(\d+)").match(mangled, m.end() + int(m.group(1)))
+    if not n:
         return mangled[:60]
-    end = m.start() + len("_kernel")
-    name = next((mangled[end - n:end] for n in range(8, 64)
-                 if mangled[end - n - len(str(n)):end - n] == str(n)
-                 and mangled[end - n].isalpha()), mangled[:end][-40:])
-    args = []
-    for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|^f", m.group(1)):
-        args.append(t.group(1) or ("bf16" if t.group(0)[0] == "1"
-                                   else "f32"))
-    return f"{name}<{','.join(args)}>"
+    end = n.end() + int(n.group(1))
+    name, args, k = mangled[n.end():end], [], end + 1
+    # a repeated __nv_bfloat16 is a substitution (S<n>_); f32 never is
+    tok = re.compile(r"13__nv_bfloat16|S\d*_|Li(\d+)E|f")
+    while mangled.startswith("I", end) and k < len(mangled) \
+            and mangled[k] != "E":
+        t = tok.match(mangled, k)
+        if not t:
+            break
+        args.append(t.group(1) or ("f32" if t.group(0) == "f" else "bf16"))
+        k = t.end()
+    return f"{name}<{','.join(args)}>" if args else name
 
 
 def nvidia_smi_line() -> str:
@@ -516,29 +546,50 @@ def seeded(shape, dtype, seed, scale=1.0):
     return torch.from_numpy(a).to("cuda", dtype)
 
 
+def rms_view(shape, offset, dtype, seed):
+    """Seeded x as a contiguous view starting ``offset`` elements into a
+    fresh buffer on the card (offset 1: an unaligned x)."""
+    import torch
+    n = 1
+    for v in shape:
+        n *= v
+    buf = torch.empty(offset + n, dtype=dtype, device="cuda")
+    buf[offset:] = seeded((n,), dtype, seed)
+    return buf[offset:].view(shape)
+
+
 def rmsnorm_kernel_row(shape):
-    """rmsnorm against ref_rmsnorm over the tests/test_kernels.py:77 shapes,
-    a ragged row, a wide one, 4096 x 4096 and the main path's ``shape``;
-    timed at the path's shape in bf16 (rotating copies of x, together >
-    the L2) by device time, since one launch is shorter than its host
-    overhead."""
+    """rmsnorm against ref_rmsnorm over RMS_SWEEP (both kernels of
+    csrc/rmsnorm.cu: register-resident and generic) in f32 and bf16;
+    timed at the main path's ``shape`` in bf16 (rotating copies of x,
+    together > the L2) by device time, since one launch is shorter than
+    its host overhead: kernel and F.rms_norm in three turns, then the
+    register kernel's CTA shapes (threads a row x rows a CTA) in turns
+    (logged)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import ref_rmsnorm
-    tol = {"float32": 1e-5, "bfloat16": 2e-2}
-    for shp in [(4, 128), (2, 16, 256), (64, 512), (3, 100), (2, 16384),
-                (4096, 4096), shape]:
+    from repro_torch.kernels.ref import RMS_SWEEP, RMS_TOL, ref_rmsnorm
+    RN = sys.modules["repro_torch.kernels.rmsnorm"]
+    cases = list(RMS_SWEEP)
+    if (tuple(shape), 0) not in cases:
+        cases.append((tuple(shape), 0))
+    for shp, offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
-            x = seeded(shp, dtype, 2)
+            x = rms_view(shp, offset, dtype, 2)
             g = seeded(shp[-1:], dtype, 3, 0.1)
             err, ok = close_err(kops.rmsnorm(x, g), ref_rmsnorm(x, g),
-                                tol[name])
+                                RMS_TOL[name])
             torch.cuda.synchronize()
-            log(f"rmsnorm {shp} {name}: max_abs_err={err:.3e} "
-                f"(tol {tol[name]})")
-            check(ok, f"rmsnorm disagrees at {shp} {name}: err={err}")
+            plan = RN.launch_plan(shp[-1], x.element_size(), offset == 0)
+            log(f"rmsnorm {shp} offset {offset} {name}: max_abs_err="
+                f"{err:.3e} (tol {RMS_TOL[name]}), plan (vec, threads, "
+                f"packs) {plan}")
+            check(ok, f"rmsnorm disagrees at {shp} offset {offset} {name}: "
+                  f"err={err}")
+            if tuple(shp) == tuple(shape) and dtype == torch.bfloat16:
+                path_err = err
     d = shape[-1]
     xs = [seeded(shape, torch.bfloat16, 10 + i) for i in range(8)]
     g = seeded((d,), torch.bfloat16, 3, 0.1)
@@ -554,13 +605,15 @@ def rmsnorm_kernel_row(shape):
     nbytes = 2 * xs[0].numel() * 2 + d * 2  # x read, out written, g read
     bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                       4 * xs[0].numel() / PEAK_OPS_PER_S["bfloat16"])
-    log(f"rmsnorm bf16 {shape} device time: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} "
-        f"ms (bytes)")
+    log(f"rmsnorm bf16 {shape} device time: kernel {ms:.5f} ms "
+        f"({ms / lib_ms:.3f}x F.rms_norm, {bound / ms:.1%} of the HBM rate),"
+        f" plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.5f} ms, bound "
+        f"{bound:.5f} ms (bytes); plan {RN.launch_plan(d, 2, True)}")
+    del xs, kernel, lib
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:16",
-            "launches": None, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": path_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": lib_ms}
 
@@ -739,19 +792,19 @@ def phase_serving(kernel_rows):
 def report_profile(prof, title, wall, path, show, per=None):
     """Device time by kernel from a torch.profiler window and the device
     busy share of ``wall`` seconds: the table goes to ``path``, its first
-    ``show`` lines to the log.  ``per`` = (label, kernel names, units,
-    unit name) adds the named kernels' device time per unit."""
+    ``show`` lines to the log.  ``per``: a list of (label, kernel names,
+    units, unit name), each adding the named kernels' device time per
+    unit."""
     evts = [e for e in prof.key_averages() if _device_us(e) > 0]
     evts.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in evts) / 1e6
     lines = [f"{title}, wall {wall * 1e3:.1f} ms under the profiler; "
              f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% "
              f"of wall"]
-    if per is not None:
-        label, names, units, unit = per
+    for i, (label, names, units, unit) in enumerate(per or ()):
         sel = [e for e in evts if any(n in e.key for n in names)]
         ms = sum(_device_us(e) for e in sel) / 1e3
-        lines.insert(1, f"{label}: {ms / units:.3f} ms device time per "
+        lines.insert(1 + i, f"{label}: {ms / units:.3f} ms device time per "
                      f"{unit} ({ms:.3f} ms, {sum(e.count for e in sel)} "
                      f"launches over {units} {unit}s)")
     for e in evts[:40]:
@@ -816,9 +869,9 @@ def phase_profile(out_dir):
         wall, steps = batch(arms["kernel"], 102)
     report_profile(prof, f"kernel path, {steps} decode steps + 1 prefill",
                    wall, os.path.join(out_dir, "profile_decode.txt"), 16,
-                   per=("paged kernels (split + combine)",
-                        ("paged_split_kernel", "paged_combine_kernel"),
-                        steps, "decode step"))
+                   per=[("paged kernels (split + combine)",
+                         ("paged_split_kernel", "paged_combine_kernel"),
+                         steps, "decode step")])
     for sched in arms.values():
         sched.close()
     del arms, params
@@ -933,7 +986,9 @@ def profile_score_calls(step, cfg, name, out_dir, n=2):
     report_profile(prof, f"{name} program, {n} calls of {SCORE_BATCH}x"
                    f"{SCORE_SEQ} tokens", wall,
                    os.path.join(out_dir, f"profile_score_{name}.txt"), 12,
-                   per=("flash kernel", ("flash_bf16_kernel",), n, "call"))
+                   per=[("flash kernel", ("flash_bf16_kernel",), n, "call"),
+                        ("rmsnorm kernel", ("rmsnorm_reg_kernel",
+                                            "rmsnorm_kernel"), n, "call")])
 
 
 def phase_coexec_kernels(rows, profile_dir=None):
@@ -1126,17 +1181,23 @@ def ssd_bound_ms(x, dt, Bm, final):
 
 
 def ssd_kernel_row():
-    """ssd_scan against ref_ssd (the sequential recurrence) and the port's
+    """ssd_scan against ref_ssd (the sequential recurrence), the port's
     plain chunked math (models/ssm.ssd_chunked_plain, called directly on
-    the card as the yardstick) over SSD_SWEEP and the path's shapes, in
-    f32 and bf16, with and without the final state, contiguous and
-    strided; timed at both path shapes in bf16 over rotating strided
-    inputs (together > the L2).  No single PyTorch call computes the SSD
-    scan, so the row has no library time."""
+    the card as the yardstick) and the kernels' own decomposition
+    (ref.ssd_chunk_parallel, with the bf16 kernels' operand rounding) over
+    SSD_SWEEP and the path's shapes, in f32 and bf16, with and without
+    the final state, contiguous and strided; timed at both path shapes in
+    bf16 over rotating strided inputs (together > the L2): CUDA-event time
+    per call and the profiler's device time summed over the call's
+    kernels, split per kernel, in three turns, with the scratch bytes.  No
+    single PyTorch call computes the SSD scan, so the row has no library
+    time."""
     import torch
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import SSD_SWEEP, SSD_TOL, ref_ssd
+    from repro_torch.kernels.ref import (SSD_SWEEP, SSD_TOL, ref_ssd,
+                                         ssd_chunk_parallel)
     from repro_torch.models.ssm import ssd_chunked_plain
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
 
     def compare(label, args, chunk, final, strided, tol):
         out = kops.ssd_scan(*args, chunk=chunk, return_final=final)
@@ -1144,29 +1205,33 @@ def ssd_kernel_row():
         ry, rh = ref_ssd(*args, return_final=True)
         cy = ssd_chunked_plain(*args, chunk, return_final=final)
         cy, ch = cy if final else (cy, None)
+        ey, eh = ssd_chunk_parallel(
+            *args, chunk=SS.CHUNK, return_final=True,
+            round_bf16=args[0].dtype == torch.bfloat16)
         torch.cuda.synchronize()
-        pairs = [("ref_ssd", y, ry), ("chunked", y, cy)]
+        pairs = [("ref_ssd", y, ry), ("chunked", y, cy), ("emulation", y, ey)]
         if final:
-            pairs += [("ref_ssd h", h, rh), ("chunked h", h, ch)]
+            pairs += [("ref_ssd h", h, rh), ("chunked h", h, ch),
+                      ("emulation h", h, eh)]
         errs = {}
         for name, a, b in pairs:
             err, ok = close_err(a, b, tol)
             errs[name] = err
-            check(ok, f"ssd_scan disagrees with {name} at {label}: "
-                  f"err={err}")
-        log(f"ssd_scan {label} final={final} strided={strided}: max_abs_err "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            check(ok and not bool(torch.isnan(a.float()).any()),
+                  f"ssd_scan disagrees with {name} at {label}: err={err}")
+        log(f"ssd_scan {label} final={final} strided={strided}: "
+            "max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" (tol {tol})")
-        return errs["chunked"]
+        return max(errs.values())
 
     for i, case in enumerate(SSD_SWEEP):
-        B, S, H, P, N, chunk = case
+        B, S, H, P, N, ref_chunk = case
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             for final in (False, True):
                 args = ssd_inputs(B, S, H, P, N, dtype, i, torch.float32,
                                   strided=final)
-                compare(f"{case} {name}", args, chunk, final, final,
+                compare(f"{case} {name}", args, ref_chunk, final, final,
                         SSD_TOL[name])
     err = None
     for j, (shape, (B, S, final)) in enumerate(SSD_PATH.items()):
@@ -1186,18 +1251,32 @@ def ssd_kernel_row():
         ins = [ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, torch.bfloat16,
                           100 + i, torch.bfloat16, strided=True)
                for i in range(16 if B == 1 else 4)]
-        ms = time_ms(rotating([
+        call = rotating([
             lambda t=t: kops.ssd_scan(*t, chunk=MAMBA_CHUNK,
-                                      return_final=final) for t in ins]), 40)
+                                      return_final=final) for t in ins])
+        runs = [(time_ms(call, 40),) + device_split(call, 40)
+                for _ in range(3)]
+        scratch = SS.scratch_bytes(B, S, MAMBA_H, MAMBA_P, MAMBA_N, final,
+                                   torch.bfloat16)
+        log(f"ssd_scan bf16 {shape} [{B},{S},{MAMBA_H},{MAMBA_P}] "
+            f"N={MAMBA_N} final={final} (chunks, heads a CTA "
+            f"{SS.plan(B, S, MAMBA_H)}, scratch {scratch / 1e6:.2f} MB): "
+            "turns (events ms, device ms) "
+            + ", ".join(f"({e:.5f}, {d:.5f})" for e, d, _ in runs)
+            + "; per kernel " + "; ".join(
+                f"{k} {v:.5f}" for k, v in runs[-1][2].items()))
+        ms = sorted(d for _, d, _ in runs)[1]                # medians
+        ev_ms = sorted(e for e, _, _ in runs)[1]
         plain_ms = time_ms(rotating([
             lambda t=t: ssd_chunked_plain(*t, MAMBA_CHUNK,
                                           return_final=final)
             for t in ins]), 8)
         bound, by = ssd_bound_ms(ins[0][0], ins[0][1], ins[0][3], final)
         log(f"ssd_scan bf16 {shape} [{B},{S},{MAMBA_H},{MAMBA_P}] "
-            f"N={MAMBA_N} final={final}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); no PyTorch "
-            f"library call computes the SSD scan")
+            f"N={MAMBA_N} final={final}: kernels {ms:.5f} ms "
+            f"device time (events {ev_ms:.5f} ms), {ms / bound:.1f}x the "
+            f"bound {bound:.5f} ms ({by}); plain {plain_ms:.4f} ms; no "
+            f"PyTorch library call computes the SSD scan")
         if row is None:
             row = {"name": "ssd_scan", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1397,7 +1476,10 @@ def phase_mamba2_profile(out_dir):
         wall, dec, pre = batch(210)
     report_profile(prof, f"mamba2 serving, {pre} prefill steps + {dec} "
                    f"decode steps", wall,
-                   os.path.join(out_dir, "profile_mamba2.txt"), 16)
+                   os.path.join(out_dir, "profile_mamba2.txt"), 16,
+                   per=[("ssd_scan kernels (chunk, state, output passes)",
+                         ("ssd_state_", "ssd_pass_kernel", "ssd_out_"), 1,
+                         "batch")])
     sched.close()
     del sched, params
     release()
@@ -1441,7 +1523,8 @@ def main() -> int:
                 f"most {max((e[2] for e in entries), default=0)} bytes "
                 f"spill stores")
             for kname, regs, spill in entries:
-                if "128" in kname or not re.search(r"[<,]\d", kname):
+                if name in ("rmsnorm", "ssd_scan") or "128" in kname \
+                        or not re.search(r"[<,]\d", kname):
                     log(f"    {kname}: {regs} registers, {spill} bytes "
                         f"spill stores")
         smi = nvidia_smi_line()

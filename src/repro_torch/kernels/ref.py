@@ -121,16 +121,39 @@ def ref_paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+# The shapes at which the rmsnorm kernels are held against ref_rmsnorm and
+# the JAX reference (tests and chip_smoke.py), as (x's shape, offset): x
+# is a contiguous view starting ``offset`` elements into a 16-byte aligned
+# buffer (offset 1: an unaligned view).  The reference test's shapes
+# (tests/test_kernels.py:77), then shapes that reach both kernels of
+# csrc/rmsnorm.cu: the register kernel at d = 24 (one warp a row), 1000
+# (a row that does not fill its threads), 4096 (a single row, 4096 rows
+# and the co-execution path's [4, 512, 4096]) and 8192 (8 packs a thread);
+# the generic kernel at a ragged d = 100, d = 16384 and an unaligned view.
+RMS_SWEEP = [
+    ((4, 128), 0), ((2, 16, 256), 0), ((64, 512), 0),
+    ((3, 24), 0), ((7, 1000), 0), ((1, 4096), 0), ((4096, 4096), 0),
+    ((4, 512, 4096), 0), ((2, 8192), 0),
+    ((3, 100), 0), ((2, 16384), 0), ((5, 4096), 1),
+]
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
 def ref_rmsnorm(x, g, eps: float = 1e-6):
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     return (y * (1.0 + g.float())).to(x.dtype)
 
 
-# The shapes and tolerances at which the SSD-scan kernel is held against
+# The shapes and tolerances at which the SSD-scan kernels are held against
 # ref_ssd and the chunked math (tests and chip_smoke.py): the reference's
 # tests/test_kernels.py:48-54, a prime length (the reference's chunk
-# halves to 1) and a length below the chunk.
+# halves to 1) and a length below the chunk; then cases for the
+# chunk-parallel kernels (chunk Q = 64): S = 1, S = Q + 1 and 2Q + 1,
+# three or more chunks with N = 128 at P = 64 (mamba2-130m's state), N not
+# a multiple of 8 (element-wise staging, zero-padded k) with an odd head
+# count, and P = 128 (two column blocks) on a ragged length.  Every case
+# is fast enough for the reference's Pallas kernel in interpret mode.
 SSD_SWEEP = [
     # (B, S, H, P, N, chunk)
     (1, 64, 2, 16, 16, 16),
@@ -139,8 +162,84 @@ SSD_SWEEP = [
     (1, 96, 2, 16, 32, 32),
     (1, 37, 2, 16, 16, 16),
     (2, 20, 2, 16, 16, 64),
+    (1, 1, 2, 16, 16, 16),
+    (1, 65, 2, 16, 32, 64),
+    (1, 129, 2, 16, 16, 128),
+    (1, 384, 2, 64, 128, 128),
+    (2, 192, 3, 32, 24, 64),
+    (1, 130, 3, 128, 36, 64),
 ]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 64,
+                       round_bf16: bool = False, return_final: bool = False):
+    """The SSD-scan kernels' decomposition in plain torch (shapes as
+    :func:`ref_ssd`): the sequence zero-padded to chunks of ``chunk``
+    tokens (dt = 0 past S keeps the decay exact), then
+
+    - chunk pass: cs = the in-chunk inclusive cumsum of dt·A, each chunk's
+      state s_c = Σ_j exp(cs_last − cs_j)·dt_j·x_jᵀ·B_j and decay
+      exp(cs_last);
+    - state pass: h_in(0) = 0, h_in(c+1) = exp(cs_last,c)·h_in(c) + s_c;
+    - output pass: y = exp(cs_i)·C_i·h_in(c)ᵀ + (C·Bᵀ ∘ L)·(dt·x), with
+      L_ij = exp(cs_i − cs_j) taken on the lower triangle only.
+
+    Products are f32 sums of exact products, as on the tensor cores.
+    ``round_bf16`` applies the bf16 kernels' operand rounding: B, C and x
+    enter as they come, and each operand computed in f32 enters as two
+    bf16 terms, hi = bf16(v) and lo = bf16(v − hi): the decayed dt·x of
+    the chunk state, h_in, and M' = (C·Bᵀ ∘ L)·dt_j, into which dt is
+    folded so that the intra-chunk product takes x as it comes.  The state
+    stays f32.  Returns y in x's dtype (and the f32 state after the last
+    token)."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f = lambda t: torch.nn.functional.pad(   # noqa: E731
+        t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+
+    def rnd(t):                                           # hi + lo in bf16
+        if not round_bf16:
+            return t
+        hi = t.to(torch.bfloat16).float()
+        return hi + (t - hi).to(torch.bfloat16).float()
+
+    xs = f(x).reshape(Bb, nc, Q, H, P)
+    dts = f(dt).reshape(Bb, nc, Q, H)
+    bs = f(Bm).reshape(Bb, nc, Q, N)
+    cm = f(Cm).reshape(Bb, nc, Q, N)
+    cs = torch.cumsum(dts * A.float(), dim=2)             # [B,nc,Q,H]
+    last = cs[:, :, -1:]                                  # [B,nc,1,H]
+
+    # (a) chunk pass
+    w = torch.exp(last - cs) * dts                        # [B,nc,Q,H]
+    xw = rnd(xs * w[..., None])
+    states = torch.einsum("bcqhp,bcqn->bchpn", xw, bs)    # [B,nc,H,P,N]
+    decay = torch.exp(last[:, :, 0])                      # [B,nc,H]
+
+    # (b) state pass
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c, :, None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, 1)                           # [B,nc,H,P,N]
+
+    # (c) output pass
+    cb = torch.einsum("bcin,bcjn->bcij", cm, bs)          # [B,nc,Q,Q]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cs.permute(0, 1, 3, 2)[..., :, None] - cs.permute(0, 1, 3, 2)[
+        ..., None, :]                                     # [B,nc,H,Q,Q]
+    L = torch.exp(torch.where(tri, diff, float("-inf")))
+    M = rnd(cb[:, :, None] * L * dts.permute(0, 1, 3, 2)[..., None, :])
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", M, xs)
+    y_off = torch.einsum("bcin,bchpn->bcihp", cm, rnd(h_in))
+    y = torch.exp(cs)[..., None] * y_off + y_diag
+    y = y.reshape(Bb, nc * Q, H, P)[:, :S].to(x.dtype)
+    return (y, h) if return_final else y
 
 
 def ref_ssd(x, dt, A, Bm, Cm, *, return_final: bool = False):

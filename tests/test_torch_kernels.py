@@ -25,10 +25,10 @@ import pytest
 torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    ATTN_SWEEP, ATTN_TOL, CARD_ONLY_ATTN, ref_attention, ref_rmsnorm)
-
-RMS_SHAPES = [(4, 128), (2, 16, 256), (64, 512)]   # tests/test_kernels.py:77
-TOL_RMS = {"float32": 1e-5, "bfloat16": 2e-2}
+    ATTN_SWEEP, ATTN_TOL, CARD_ONLY_ATTN, RMS_SWEEP, ref_attention,
+    ref_rmsnorm)
+from repro_torch.kernels.ref import RMS_TOL as TOL_RMS  # noqa: E402
+from repro_torch.kernels.rmsnorm import launch_plan  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +76,15 @@ def _rms_inputs(shape, seed=2):
 
 def _t(a, dtype, device="cpu"):
     return torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+
+
+def _rms_x(a, offset, dtype, device="cpu"):
+    """``a`` as a contiguous view starting ``offset`` elements into a
+    fresh (16-byte aligned) buffer: offset 1 gives an unaligned x."""
+    buf = torch.empty(offset + a.size, dtype=getattr(torch, dtype),
+                      device=device)
+    buf[offset:] = _t(a.reshape(-1), dtype, device)
+    return buf[offset:].view(a.shape)
 
 
 def _f32(x):
@@ -167,18 +176,42 @@ def test_bf16_p_emulation_covers_rows_past_every_key():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("shape", RMS_SWEEP)
 def test_rmsnorm_matches_reference_kernel(shape, dtype, jax_ref):
     jnp, jops = jax_ref
+    shape, offset = shape
     x, g = _rms_inputs(shape)
     kops.rmsnorm.launches = 0
-    got = kops.rmsnorm(_t(x, dtype), _t(g, dtype))
+    got = kops.rmsnorm(_rms_x(x, offset, dtype), _t(g, dtype))
     want = jops.rmsnorm(jnp.asarray(x).astype(dtype),
                         jnp.asarray(g).astype(dtype), row_block=16)
     assert got.dtype == getattr(torch, dtype) and got.shape == shape
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL_RMS[dtype],
                                atol=TOL_RMS[dtype])
     assert kops.rmsnorm.launches == 0
+
+
+@pytest.mark.parametrize("d, el, aligned, plan", [
+    # (d, x's element bytes, pointers aligned) -> (vec, threads a row,
+    # packs a thread; 0 packs: the generic kernel), one row a CTA
+    (4096, 2, True, (8, 64, 8)),            # the co-execution path
+    (8192, 2, True, (8, 128, 8)),           # 8 packs a thread at most
+    (8192, 4, True, (4, 256, 8)),
+    (4096, 4, True, (4, 128, 8)),
+    (2048, 4, True, (4, 64, 8)),
+    (512, 2, True, (8, 64, 1)),
+    (24, 2, True, (8, 32, 1)),              # one warp a row, no barrier
+    (8, 2, True, (8, 32, 1)),               # one pack, one live lane
+    (1000, 2, True, (8, 64, 2)),            # a row short of its threads
+    (100, 2, True, (1, 128, 0)),            # ragged d: generic, scalar
+    (16384, 2, True, (8, 256, 0)),          # wide: generic, 16-byte
+    (4096, 2, False, (1, 256, 0)),          # unaligned: generic, scalar
+])
+def test_rmsnorm_launch_plan_picks_the_kernel_by_shape(d, el, aligned, plan):
+    assert launch_plan(d, el, aligned) == plan
+    vec, threads, packs = plan
+    if packs:                               # the row fits its registers
+        assert threads * packs * vec >= d > threads * (packs // 2) * vec
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -216,8 +249,9 @@ def test_cuda_flash_attention_matches_plain_version(dtype, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_matches_plain_version(dtype, card):
-    for shape in RMS_SHAPES + [(3, 100), (2, 16384), (4096, 4096)]:
-        x, g = (_t(a, dtype, card) for a in _rms_inputs(shape))
+    for shape, offset in RMS_SWEEP:
+        xa, ga = _rms_inputs(shape)
+        x, g = _rms_x(xa, offset, dtype, card), _t(ga, dtype, card)
         before = kops.rmsnorm.launches
         out = kops.rmsnorm(x, g)
         torch.testing.assert_close(out.float(), ref_rmsnorm(x, g).float(),
@@ -251,3 +285,37 @@ def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
         ("paged_combine_kernel<bf16>", 32, 40),
         ("flash_f32_kernel<128>", 103, 0),
     ]
+
+
+RMS_NS = "_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f87139"
+SSD_NS = "_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_f5ebf9df"
+
+
+def test_chip_smoke_names_the_redesigned_kernels():
+    """The rmsnorm and SSD kernels' names as chip_smoke.py logs them, from
+    the mangled names of nvcc's ``-Xptxas -v`` log of the kernels' build
+    (sm_90a): template arguments in any order of types and integers, a
+    repeated type as a substitution, and a kernel that is not a
+    template."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    names = [
+        (RMS_NS + "18rmsnorm_reg_kernelI13__nv_bfloat16fLi4EEEvPKT_PKT0_"
+         "PS2_if", "rmsnorm_reg_kernel<bf16,f32,4>"),
+        (RMS_NS + "18rmsnorm_reg_kernelI13__nv_bfloat16S1_Li8EEEvPKT_PKT0_"
+         "PS2_if", "rmsnorm_reg_kernel<bf16,bf16,8>"),
+        (RMS_NS + "14rmsnorm_kernelIffLi4EEEvPKT_PKT0_PS1_if",
+         "rmsnorm_kernel<f32,f32,4>"),
+        (SSD_NS + "14ssd_state_bf16I13__nv_bfloat16EEvNS_4ArgsE",
+         "ssd_state_bf16<bf16>"),
+        (SSD_NS + "12ssd_out_bf16IfEEvNS_4ArgsE", "ssd_out_bf16<f32>"),
+        (SSD_NS + "13ssd_state_f32I13__nv_bfloat16EEvNS_4ArgsE",
+         "ssd_state_f32<bf16>"),
+        (SSD_NS + "15ssd_pass_kernelENS_4ArgsEi", "ssd_pass_kernel"),
+    ]
+    for mangled, want in names:
+        assert cs._short_kernel(mangled) == want
+

@@ -17,6 +17,7 @@ it against its plain versions there and skips elsewhere, and
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ref import SSD_SWEEP, ref_ssd  # noqa: E402
+from repro_torch.kernels.ref import ssd_chunk_parallel  # noqa: E402
 from repro_torch.kernels.ref import SSD_TOL as TOL_SSD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
@@ -123,6 +125,73 @@ def test_ssd_scan_matches_reference_kernel_and_ref(case, dtype, jax_ref):
         _close(got, want, tol)
         _close(ref_ssd(*t), want, tol)
     assert kops.ssd_scan.launches == 0             # the CPU launches nothing
+
+
+@pytest.mark.parametrize("Q", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_SWEEP)
+def test_ssd_chunk_parallel_emulation_matches_reference(case, dtype, Q,
+                                                        jax_ref):
+    """The kernels' decomposition (chunk pass, state pass, output pass) at
+    the kernels' chunks, exact in f32 and with the bf16 kernels' rounding
+    points in bf16, against the reference's Pallas kernel in interpret mode
+    and the sequential recurrence, for y and the final state; no NaN (L is
+    taken on the lower triangle only)."""
+    _, jnp = jax_ref
+    from repro.kernels import ops as jops
+    arrs = _ssd_inputs(case)
+    jx = [jnp.asarray(a) for a in arrs]
+    for i in (0, 3, 4):
+        jx[i] = jx[i].astype(dtype)
+    want_kernel = jops.ssd_scan(*jx, chunk=case[-1])
+    t = _typed(arrs, dtype)
+    want_y, want_h = ref_ssd(*t, return_final=True)
+    got, h = ssd_chunk_parallel(*t, chunk=Q, return_final=True,
+                                round_bf16=dtype == "bfloat16")
+    assert got.dtype == t[0].dtype and h.dtype == torch.float32
+    assert not torch.isnan(got.float()).any() and not torch.isnan(h).any()
+    tol = TOL_SSD[dtype]
+    _close(got, want_kernel, tol)
+    _close(got, want_y, tol)
+    _close(h, want_h, tol)
+
+
+def test_ssd_scan_plan_and_scratch():
+    """Chunks, head groups and scratch at the main path's shapes: the
+    prefill [1, 1024] runs 16 chunks x 24 heads in CTAs of one head, the
+    eval forward [4, 2048] 32 chunks x 3 groups of 8 heads x 4."""
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
+    bf16 = torch.bfloat16
+    assert SS.CHUNK == 64
+    assert SS.plan(1, 1024, 24) == (16, 1)
+    assert SS.plan(4, 2048, 24) == (32, 8)
+    assert SS.plan(1, 1, 24) == (1, 1)
+    assert SS.plan(1, 65, 2) == (2, 1)
+    assert SS.plan(64, 640, 3) == (10, 3)       # one group: 640 CTAs
+    # f32 chunk states + decays, bf16 hi + lo carried states: 25.2 MB at
+    # the prefill with Q = 64
+    assert SS.scratch_bytes(1, 1024, 24, 64, 128, True, bf16) == \
+        4 * 16 * 24 * (64 * 128 + 1) + 4 * 16 * 24 * 64 * 128
+    assert SS.scratch_bytes(1, 1024, 24, 64, 128, True, torch.float32) == \
+        4 * 16 * 24 * (64 * 128 + 1)
+    assert SS.scratch_bytes(1, 64, 24, 64, 128, False, bf16) == 0
+    assert SS.scratch_bytes(1, 64, 24, 64, 128, True, bf16) == \
+        4 * 24 * (64 * 128 + 1)
+
+
+def test_ssd_scan_16_byte_loads_read_conv_slices():
+    """x, B and C as the model hands them over (slices of the conv output,
+    rows 1792 elements apart) take 16-byte loads; a view one element off,
+    or N not in 16-byte units, does not."""
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
+    conv = torch.zeros(2, 64, 24 * 64 + 2 * 128, dtype=torch.bfloat16)
+    x = conv[..., :1536].reshape(2, 64, 24, 64)
+    Bm, Cm = conv[..., 1536:1664], conv[..., 1664:]
+    assert SS._vec_ok(x, Bm, Cm, 128)
+    assert not SS._vec_ok(x, conv[..., 1537:1665], Cm, 128)
+    odd = torch.zeros(2, 64, 24 + 2 * 12, dtype=torch.bfloat16)
+    assert not SS._vec_ok(odd[..., :24].reshape(2, 64, 2, 12),
+                          odd[..., 24:36], odd[..., 36:], 12)
 
 
 @pytest.mark.parametrize("return_final", [False, True],
@@ -264,16 +333,26 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_ssd_scan_matches_plain_versions(dtype, card):
+    """Every case against the recurrence, the chunked math and the
+    kernels' own decomposition (``ssd_chunk_parallel`` with the bf16
+    kernels' operand rounding); the call without the final state gives
+    the same y."""
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
     for case in SSD_SWEEP:
         t = _typed(_ssd_inputs(case), dtype, card)
         before = kops.ssd_scan.launches
         y, h = kops.ssd_scan(*t, chunk=case[-1], return_final=True)
         wy, wh = ref_ssd(*t, return_final=True)
-        torch.testing.assert_close(y.float(), wy.float(),
-                                   rtol=TOL_SSD[dtype], atol=TOL_SSD[dtype])
-        torch.testing.assert_close(h, wh, rtol=TOL_SSD[dtype],
-                                   atol=TOL_SSD[dtype])
+        tol = dict(rtol=TOL_SSD[dtype], atol=TOL_SSD[dtype])
+        torch.testing.assert_close(y.float(), wy.float(), **tol)
+        torch.testing.assert_close(h, wh, **tol)
         cy = TS.ssd_chunked_plain(*t, case[-1])
-        torch.testing.assert_close(y.float(), cy.float(),
-                                   rtol=TOL_SSD[dtype], atol=TOL_SSD[dtype])
-        assert kops.ssd_scan.launches == before + 1
+        torch.testing.assert_close(y.float(), cy.float(), **tol)
+        ey, eh = ssd_chunk_parallel(*t, chunk=SS.CHUNK, return_final=True,
+                                    round_bf16=dtype == "bfloat16")
+        torch.testing.assert_close(y.float(), ey.float(), **tol)
+        torch.testing.assert_close(h, eh, **tol)
+        assert not torch.isnan(y.float()).any()
+        y2 = kops.ssd_scan(*t, chunk=case[-1])       # no final state
+        torch.testing.assert_close(y2, y, rtol=0, atol=0)
+        assert kops.ssd_scan.launches == before + 2
