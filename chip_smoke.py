@@ -59,7 +59,29 @@ Phases, in order; any failure exits non-zero and prints no result:
               plain chunked math); forward logits of [2, 512] tokens card
               vs CPU within 1e-4; one full-depth bf16 forward of [4, 2048]
               tokens (24 SSD launches, finite logits).
-9. profile  — only with ``--profile``: steady-state decode time per step,
+9. programs — the paper's ten imperative training programs
+              (``repro_torch.programs``: tape autodiff, dropout, object
+              mutation, numpy calls on fetched tensors, fetch-steered
+              control flow), each through ``function`` ("terra") and
+              ``imperative()``, 12 warm-up + 40 measured iterations as
+              ``fig5_throughput.py`` counts them: ms per iteration, their
+              ratio, the engine counters; every program reaches
+              co-execution.  Then 20 iterations fetching each loss, float32
+              with TF32 off, on the card and on the CPU: counters equal,
+              losses within 1e-4 relative (dropblock too: its dropout mask
+              is a counter hash, the same on both devices).
+10. train   — ``Trainer`` at ``examples/train_lm.py``'s "100m" preset
+              (10 layers, d_model 640, vocab 50304, remat, bf16; batch
+              4 x 256 tokens): 40 co-executed steps with checkpoints at 20
+              and 40, the loss must fall; the median step time with the
+              card synced each step, the phase and the peak memory; a
+              second ``Trainer`` resumes at step 40 and takes 10 steps.
+              Then 2 layers at the same width in float32 (TF32 off), 8
+              steps each from one step-0 checkpoint: card terra, card
+              eager (``use_terra=False``) and CPU losses within 1e-3
+              relative.  Last, mamba2 training on the card raises
+              ``NotImplementedError`` (the SSD kernel has no backward).
+11. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -67,7 +89,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               flash and rmsnorm kernels' device time per call),
               and mamba2 serving is timed and profiled over batches of 16
               requests (prompts 512-527, 64 new tokens; the SSD kernels'
-              device time per batch).
+              device time per batch); last, ten steps of the 100m
+              trainer under the profiler (device time by kernel class
+              per step, busy share).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1437,6 +1461,327 @@ def phase_mamba2_equality():
     release()
 
 
+# --------------------------------------------------------------------------
+# training: the paper's ten programs (phase 9) and the LM trainer (phase 10)
+# --------------------------------------------------------------------------
+
+PROGRAM_WARMUP, PROGRAM_MEASURE = 12, 40     # fig5_throughput.py's counts
+PROGRAM_CHECK_ITERS = 20
+PROGRAM_RTOL = 1e-4        # f32 losses card vs CPU (TF32 off)
+PROGRAM_KEYS = ("traced_iterations", "transitions", "retraces", "replays",
+                "replayed_entries", "graph_versions", "iterations",
+                "families", "segments_dispatched", "walker_fast_hits")
+
+# examples/train_lm.py's "100m" preset, copied (this script imports
+# nothing of examples/); tests/test_torch_train.py holds it equal
+TRAIN_100M = dict(cfg=dict(
+    name="lm-100m", family="dense", n_layers=10, d_model=640,
+    n_heads=10, n_kv_heads=10, d_ff=2560, vocab=50304, head_dim=64,
+    rope_theta=10000.0, block_pattern=("attn",), remat=True,
+    q_block=128, kv_block=256),
+    batch=4, seq_len=256)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_STEPS = 40, 20, 10
+PARITY_LAYERS, PARITY_STEPS, PARITY_BATCH, PARITY_SEQ = 2, 8, 2, 128
+PARITY_RTOL = 1e-3         # f32 losses after 8 AdamW steps (see phase 10)
+
+
+def time_program(core, programs, name, variant):
+    """ms per iteration of one program variant (after the warm-up), as
+    fig5_throughput.time_variant measures it, with the card synced before
+    each clock read; -> (ms, stats of the terra variant)."""
+    import torch
+    step, _ = programs.REGISTRY[name](variant)
+    stats = {}
+    if variant == "terra":
+        tf = core.function(step)
+        for i in range(PROGRAM_WARMUP):
+            tf(i)
+        tf.wait()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROGRAM_WARMUP, PROGRAM_WARMUP + PROGRAM_MEASURE):
+            tf(i)
+        tf.wait()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = {k: tf.stats.get(k) for k in PROGRAM_KEYS}
+        stats["phase"] = tf.phase
+        tf.close()
+    else:
+        with core.imperative() as imp:
+            for i in range(PROGRAM_WARMUP):
+                step(i)
+                imp.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PROGRAM_WARMUP, PROGRAM_WARMUP + PROGRAM_MEASURE):
+                step(i)
+                imp.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    return dt / PROGRAM_MEASURE * 1e3, stats
+
+
+def program_losses(core, programs, name, device):
+    """Losses (each fetched) and counters of PROGRAM_CHECK_ITERS terra
+    iterations of one program on ``device``."""
+    step, _ = programs.REGISTRY[name]("terra", device=device)
+    tf = core.function(step, device=device)
+    losses = [float(tf(i)) for i in range(PROGRAM_CHECK_ITERS)]
+    tf.wait()
+    stats = {k: tf.stats.get(k) for k in PROGRAM_KEYS}
+    stats["phase"] = tf.phase
+    tf.close()
+    return losses, stats
+
+
+def phase_programs():
+    import numpy as np
+    import torch
+    from repro_torch import core, programs
+
+    log(f"programs: {len(programs.REGISTRY)} programs x (terra, imperative),"
+        f" {PROGRAM_WARMUP} warm-up + {PROGRAM_MEASURE} measured iterations"
+        f" (float32, allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    table = {}
+    for name in sorted(programs.REGISTRY):
+        imp_ms, _ = time_program(core, programs, name, "imperative")
+        terra_ms, st = time_program(core, programs, name, "terra")
+        table[name] = dict(terra_ms=round(terra_ms, 4),
+                           imperative_ms=round(imp_ms, 4),
+                           speedup=round(imp_ms / terra_ms, 3), **st)
+        log(f"program {name}: terra {terra_ms:.3f} ms/iter, imperative "
+            f"{imp_ms:.3f} ms/iter, imperative/terra {imp_ms / terra_ms:.3f}"
+            f"; {json.dumps(st)}")
+        check(st["phase"] == "co-execution",
+              f"program {name} terra phase {st['phase']}")
+    log("programs table: " + json.dumps(table))
+    release()
+
+    # the same programs fetched every iteration, card against CPU: the
+    # dropout mask is a counter hash of (key, element index), made alike
+    # on both, so dropblock's losses compare too
+    log(f"programs card vs cpu: {PROGRAM_CHECK_ITERS} terra iterations, "
+        f"float32, TF32 off, losses to rtol {PROGRAM_RTOL}")
+    for name in sorted(programs.REGISTRY):
+        card, st_card = program_losses(core, programs, name, None)
+        cpu, st_cpu = program_losses(core, programs, name, "cpu")
+        a, b = np.asarray(card), np.asarray(cpu)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        log(f"program {name} card vs cpu: max rel err {rel:.3e}, losses "
+            f"{a[0]:.6f} -> {a[-1]:.6f}, counters equal "
+            f"{st_card == st_cpu}")
+        check(st_card == st_cpu, f"program {name} counters card "
+              f"{st_card} != cpu {st_cpu}")
+        check(np.all(np.isfinite(a)) and rel <= PROGRAM_RTOL,
+              f"program {name} losses card vs cpu: rel err {rel:.3e}")
+    release()
+
+
+class _SyncedSteps:
+    """A Trainer's iteration that waits for the step to finish: the
+    engine's dispatch queue drained and the card synced (the GraphRunner
+    thread may not have issued the step's kernels when the call returns).
+    The host-read step time then covers the whole step."""
+
+    def __init__(self, it):
+        self.it, self.times = it, []
+
+    def __call__(self, *args):
+        import torch
+        t0 = time.perf_counter()
+        out = self.it(*args)
+        self.it.wait()
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.it, name)
+
+
+def train_parity_losses(cfg, init_dir, device, use_terra):
+    """PARITY_STEPS logged losses of a Trainer resumed from the step-0
+    checkpoint in ``init_dir``, so every arm starts alike (it then saves
+    nothing: the next arm resumes from the same step 0)."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, OptConfig(warmup_steps=2, total_steps=100),
+                 ckpt_dir=init_dir, batch=PARITY_BATCH, seq_len=PARITY_SEQ,
+                 log_every=1, use_terra=use_terra, device=device)
+    check(tr.start_step == 0, f"parity arm resumed at {tr.start_step}")
+    tr.ckpt_dir = None
+    hist = tr.train(PARITY_STEPS, verbose=False)
+    phase = tr._iteration.phase if use_terra else "eager"
+    if use_terra:
+        tr._iteration.close()
+    return [l for _, l in hist], phase
+
+
+def phase_train():
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(**TRAIN_100M["cfg"])
+    opt_cfg = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS
+                        + TRAIN_RESUME_STEPS)
+    kw = dict(batch=TRAIN_100M["batch"], seq_len=TRAIN_100M["seq_len"],
+              log_every=1, ckpt_every=TRAIN_CKPT_EVERY)
+    d = tempfile.mkdtemp(prefix="train_100m_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, opt_cfg, ckpt_dir=d, **kw)
+        n = M.param_count(tr.state_tree()["params"])
+        log(f"train: {cfg.name}, {n / 1e6:.1f} M params ({cfg.param_dtype}),"
+            f" {cfg.n_layers} layers, remat {cfg.remat} "
+            f"({cfg.remat_policy}), batch {kw['batch']} x {kw['seq_len']}"
+            f" tokens, {TRAIN_STEPS} steps, checkpoint every "
+            f"{TRAIN_CKPT_EVERY}")
+        timed = tr._iteration = _SyncedSteps(tr._iteration)
+        t0 = time.perf_counter()
+        hist = tr.train(TRAIN_STEPS, verbose=False)
+        wall = time.perf_counter() - t0
+        st = timed.stats
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [l for _, l in hist]
+        steady = timed.times[st["traced_iterations"]:]
+        med = float(np.median(steady)) * 1e3
+        log(f"train 100m: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"(steps {hist[0][0]}..{hist[-1][0]}), phase {timed.phase}, "
+            f"median step {med:.2f} ms over {len(steady)} co-executed "
+            f"steps (each step waited for; min {min(steady) * 1e3:.2f}, "
+            f"max {max(steady) * 1e3:.2f}), first step "
+            f"{timed.times[0] * 1e3:.1f} ms, wall {wall:.2f} s with the "
+            f"checkpoints, {TRAIN_100M['batch'] * TRAIN_100M['seq_len'] / med * 1e3:.0f}"
+            f" tokens/s at the median, max_memory_allocated {peak:.3f} GiB")
+        log("train 100m losses: " + json.dumps([round(l, 5) for l in losses]))
+        keys = ("phase", "iterations", "traced_iterations", "transitions",
+                "retraces", "replays", "graph_versions",
+                "segments_dispatched", "walker_fast_hits")
+        log("train 100m counters: " + json.dumps(
+            {k: st.get(k) for k in keys} | {"phase": timed.phase}))
+        log(f"train 100m straggler events: {len(tr.straggler_events)}")
+        check(timed.phase == "co-execution", f"train phase {timed.phase}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train 100m loss did not fall: {losses[0]} -> {losses[-1]}")
+        check(ckpt.latest_step(d) == TRAIN_STEPS
+              and os.path.isdir(os.path.join(d, f"step_{TRAIN_CKPT_EVERY}")),
+              "train 100m checkpoints missing")
+        timed.close()
+        del tr, timed
+        release()
+
+        tr2 = Trainer(cfg, opt_cfg, ckpt_dir=d, **kw)
+        check(tr2.start_step == TRAIN_STEPS,
+              f"resume started at {tr2.start_step}, not {TRAIN_STEPS}")
+        h2 = tr2.train(TRAIN_RESUME_STEPS, verbose=False)
+        log(f"train 100m resume: from step {tr2.start_step}, steps "
+            f"{h2[0][0]}..{h2[-1][0]}, loss {h2[0][1]:.4f} -> "
+            f"{h2[-1][1]:.4f}, phase {tr2._iteration.phase}")
+        check(h2[0][0] == TRAIN_STEPS + 1 and all(np.isfinite(
+            [l for _, l in h2])), "train 100m resume failed")
+        tr2._iteration.close()
+        del tr2
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    release()
+
+    # parity at the same width, 2 layers, float32, TF32 off: every arm
+    # resumes from one step-0 checkpoint (written by the CPU trainer), so
+    # all start from the same weights.  AdamW's first steps move every
+    # weight by about lr whatever its gradient's size, so a near-zero
+    # gradient whose sign differs between devices moves its weight the
+    # other way: PARITY_RTOL allows for that.
+    pcfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS, dtype="float32",
+                               param_dtype="float32")
+    init = tempfile.mkdtemp(prefix="parity_init_")
+    try:
+        Trainer(pcfg, OptConfig(), ckpt_dir=init, batch=PARITY_BATCH,
+                seq_len=PARITY_SEQ, use_terra=False,
+                device="cpu").train(0, verbose=False)
+        arms = {}
+        for name, device, terra in (("card terra", None, True),
+                                    ("card eager", None, False),
+                                    ("cpu terra", "cpu", True)):
+            t0 = time.perf_counter()
+            arms[name], phase = train_parity_losses(pcfg, init, device, terra)
+            log(f"train parity arm {name}: phase {phase}, losses "
+                f"{json.dumps([round(l, 6) for l in arms[name]])} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(init, ignore_errors=True)
+    base = np.asarray(arms["card terra"])
+    for name in ("card eager", "cpu terra"):
+        rel = float(np.max(np.abs(np.asarray(arms[name]) - base)
+                           / np.abs(base)))
+        log(f"train parity card terra vs {name}: max rel err {rel:.3e} "
+            f"(rtol {PARITY_RTOL})")
+        check(rel <= PARITY_RTOL, f"train parity vs {name}: {rel:.3e}")
+    release()
+
+    mcfg = smoke_config("mamba2-130m")
+    tr = Trainer(mcfg, OptConfig(), batch=2, seq_len=32, log_every=1)
+    try:
+        tr.train(1, verbose=False)
+    except NotImplementedError as e:
+        check("ROADMAP.md" in str(e), f"mamba2 raised without the ROADMAP "
+              f"item: {e}")
+        log(f"train mamba2 on the card raises NotImplementedError: {e}")
+    else:
+        raise SmokeFailure("mamba2 training on the card did not raise")
+    finally:
+        tr._iteration.close()
+    release()
+
+
+def phase_train_profile(out_dir):
+    """Ten co-executed steps of the 100m trainer (after 12 warm-up steps)
+    under torch.profiler: device time by kernel and class per step, the
+    device busy share of the steps' wall.  Writes the table to
+    ``out_dir``/profile_train.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(**TRAIN_100M["cfg"])
+    tr = Trainer(cfg, OptConfig(warmup_steps=5, total_steps=100),
+                 batch=TRAIN_100M["batch"], seq_len=TRAIN_100M["seq_len"],
+                 log_every=10)
+    tr.train(12, verbose=False)
+    tr._iteration.wait()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(10, verbose=False)
+        tr._iteration.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"profile train 100m: 10 steps in {wall * 1e3:.1f} ms under the "
+        f"profiler = {wall * 1e2:.2f} ms/step")
+    report_profile(prof, "train 100m, 10 co-executed steps", wall,
+                   os.path.join(out_dir, "profile_train.txt"), 24,
+                   per=[("GEMMs", ("gemm", "nvjet", "cutlass", "xmma"), 10,
+                         "step"),
+                        ("elementwise", ("elementwise", "vectorized"), 10,
+                         "step"),
+                        ("reductions", ("reduce",), 10, "step")])
+    tr._iteration.close()
+    del tr
+    release()
+
+
 def phase_mamba2_profile(out_dir):
     """Steady mamba2-130m serving at full width and depth (bf16): after a
     warm-up batch (tracing, co-execution entry), batches of 16 requests
@@ -1540,9 +1885,12 @@ def main() -> int:
         phase_coexec_equality()
         phase_mamba2_serving(rows)
         phase_mamba2_equality()
+        phase_programs()
+        phase_train()
         if args.profile:
             phase_profile(os.path.join(HERE, "chiprun_out"))
             phase_mamba2_profile(os.path.join(HERE, "chiprun_out"))
+            phase_train_profile(os.path.join(HERE, "chiprun_out"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

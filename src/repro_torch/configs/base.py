@@ -16,9 +16,10 @@ transformer assembly (models/transformer.py).  Kinds:
 
 The schema is the reference's field for field, so a port config compares
 equal to its reference counterpart; field comments give the reference's
-meaning.  The port reads the attention, SSM (Mamba-2) and compute fields;
-MoE, RG-LRU, encoder and remat fields wait for later slices, and
-``unroll`` has no effect (the port runs its loops in Python).
+meaning.  The port reads the attention, SSM (Mamba-2), compute and remat
+fields (remat policies "full" and "dots"); MoE, RG-LRU and encoder fields
+wait for later slices, and ``unroll`` has no effect (the port runs its
+loops in Python).
 """
 
 from __future__ import annotations

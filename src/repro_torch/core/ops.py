@@ -19,9 +19,11 @@ Every impl is a plain function of torch tensors (and baked Python scalars)
 that never writes into its inputs: the engine keeps iteration-start
 buffers for rollback, so results are always fresh tensors or views.
 
-The backward machinery (``GradientTape`` and the per-op ``<op>.vjp`` ops)
-and the convolution, pooling, dropout and random ops of the reference wait
-for the training slice of the port.
+Autodiff: ``GradientTape`` replays the recorded trace backwards, emitting one
+``<op>.vjp`` operation per forward operation — so the backward pass lands in
+the TraceGraph exactly like LazyTensor/PyTorch-XLA backward traces.  A
+``.vjp`` op differentiates its forward impl with ``torch.func.vjp``, which
+computes gradients inside the segments' ``torch.no_grad()`` too.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tensor import TerraTensor, Variable, current_engine
-from repro_torch.core.trace import Aval, as_tensor, torch_dtype, user_location
+from repro_torch.core.trace import (Aval, Ref, VarRef, as_tensor, torch_dtype,
+                                    user_location)
 
 
 # --------------------------------------------------------------------------
@@ -132,8 +135,133 @@ def _wrap_eager(out):
     return TerraTensor(None, Aval.of(out), eager=out)
 
 
-# ops with no gradient (kernel_sub adds its fused ops; the training slice
-# brings the tape that reads this set)
+# --------------------------------------------------------------------------
+# Generic VJP ops: one `<name>.vjp` op per forward op
+# --------------------------------------------------------------------------
+
+def _zero_cotangent(x, device) -> torch.Tensor:
+    """The cotangent of an input that is not differentiated: zeros of its
+    own shape and dtype (a 0-d tensor for a baked scalar)."""
+    if isinstance(x, torch.Tensor):
+        return torch.zeros_like(x)
+    return torch.zeros((), device=device, dtype=as_tensor(x).dtype)
+
+
+def get_vjp_op_name(fwd_name: str) -> str:
+    name = fwd_name + ".vjp"
+    if name not in OPS:
+        fwd_impl = OPS[fwd_name].impl
+
+        def vjp_impl(*args, _n_out: int, _n_in: int, **attrs):
+            cts = args[:_n_out]
+            inputs = list(args[_n_out:_n_out + _n_in])
+            # torch.func.vjp takes floating tensors only: integer tensors
+            # and baked scalars are closed over and get zero cotangents
+            # (the tape's float filter drops them, as it drops JAX's
+            # float0 cotangents)
+            diff = [i for i, x in enumerate(inputs)
+                    if isinstance(x, torch.Tensor) and x.is_floating_point()]
+            grads = [_zero_cotangent(x, cts[0].device) for x in inputs]
+            if diff:
+                def primal(*d):
+                    ins = list(inputs)
+                    for i, v in zip(diff, d):
+                        ins[i] = v
+                    return fwd_impl(*ins, **attrs)
+
+                _, vjp_fn = torch.func.vjp(primal,
+                                           *(inputs[i] for i in diff))
+                outs = vjp_fn(cts[0] if _n_out == 1 else tuple(cts))
+                for i, g in zip(diff, outs):
+                    grads[i] = g
+            return tuple(grads) if len(grads) > 1 else grads[0]
+
+        OPS[name] = OpDef(name, vjp_impl)
+    return name
+
+
+# --------------------------------------------------------------------------
+# GradientTape (TF-style; backward ops are recorded as Terra ops)
+# --------------------------------------------------------------------------
+
+class GradientTape:
+    def __init__(self):
+        self._start = None
+        self._engine = None
+
+    def __enter__(self):
+        eng = current_engine()
+        if eng is None:
+            raise RuntimeError("GradientTape requires an active Terra engine "
+                               "(use terra.imperative()/Terra runtime)")
+        self._engine = eng
+        self._start = eng.tape_mark()
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def gradient(self, loss: TerraTensor, sources):
+        """Emit the backward trace for ``loss`` w.r.t. ``sources``.
+
+        ``sources`` is a list of Variables or TerraTensors.  Returns a list
+        of TerraTensors (cotangents), zeros where unconnected.
+        """
+        eng = self._engine
+        entries, tensors_of = eng.tape_slice(self._start)
+        if not isinstance(loss.ref, Ref):
+            raise ValueError("loss must be produced by a recorded op")
+
+        source_refs = []
+        for s in sources:
+            if isinstance(s, Variable):
+                source_refs.append(eng.variable_read_ref(s))
+            else:
+                source_refs.append(s.ref)
+
+        ct: Dict[Any, TerraTensor] = {loss.ref: ones_like(loss)}
+
+        # entries are in execution (topological) order — walk backward
+        for idx in range(len(entries) - 1, -1, -1):
+            ordinal, entry = entries[idx]
+            out_cts = [ct.get(Ref(ordinal, i)) for i in range(len(entry.out_avals))]
+            if all(c is None for c in out_cts):
+                continue
+            if entry.op_name in _NONDIFF_OPS:
+                continue
+            outs = tensors_of(ordinal)
+            filled = [c if c is not None else zeros_like(outs[i])
+                      for i, c in enumerate(out_cts)]
+            in_tensors = eng.tensors_for_input_slots(ordinal, entry)
+            vjp_name = get_vjp_op_name(entry.op_name)
+            grads = _call_op(
+                vjp_name,
+                tuple(filled) + tuple(in_tensors),
+                dict(entry.attrs) | {"_n_out": len(entry.out_avals),
+                                     "_n_in": len(in_tensors)},
+            )
+            if not isinstance(grads, tuple):
+                grads = (grads,)
+            for slot, g in zip(entry.input_refs, grads):
+                if isinstance(slot, (Ref, VarRef)) and _is_float(g.aval.dtype):
+                    prev = ct.get(slot)
+                    ct[slot] = g if prev is None else add(prev, g)
+
+        results = []
+        for s, r in zip(sources, source_refs):
+            g = ct.get(r)
+            if g is None:
+                ref_t = s.read() if isinstance(s, Variable) else s
+                g = zeros_like(ref_t)
+            results.append(g)
+        return results
+
+
+def _is_float(dtype) -> bool:
+    return torch_dtype(dtype).is_floating_point
+
+
+# ops with no gradient (kernel_sub adds its fused ops)
 _NONDIFF_OPS = {"greater", "less", "greater_equal", "less_equal", "equal",
                 "argmax", "argmin", "stop_gradient", "iota", "one_hot_int"}
 
@@ -179,6 +307,37 @@ def _next_key():
         return eng.next_rng_key()
     with _eager_key_lock:
         return draw_key(_eager_gen)
+
+
+# A key becomes random bits by a counter hash: element i of a draw gets
+# mix(mix(i ^ s1) ^ (i >> 32) ^ s2), where (s1, s2) are hashed from the
+# key's two words and ``mix`` is a 32-bit avalanche (xor-shifts and odd
+# multipliers).  Every value is a non-negative int64 below 2**32 and every
+# multiplier is below 2**31, so no product wraps: the bits are the same on
+# the CPU and on the card, and they are made where the key lies, with no
+# host sync.  (They cannot match the reference's ``jax.random`` draws.)
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def _random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` hashed 32-bit words (int64 tensor on the key's device)."""
+    s1 = _mix32((key[0] & _M32) ^ _mix32((key[0] >> 32) & _M32))
+    s2 = _mix32((key[1] & _M32) ^ _mix32(((key[1] >> 32) & _M32) ^ s1))
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    return _mix32(_mix32((i & _M32) ^ s1) ^ (i >> 32) ^ s2)
+
+
+def _uniform01(key, n: int) -> torch.Tensor:
+    """float32 in [0, 1): the top 24 bits of each word, exactly."""
+    return (_random_bits(key, n) >> 8).to(torch.float32) * 2.0 ** -24
 
 
 # --------------------------------------------------------------------------
@@ -344,8 +503,87 @@ rms_norm      = def_op("rms_norm", _rms_norm)
 softmax_xent  = def_op("softmax_xent", _softmax_xent)
 
 
+def _same_pad(size: int, k: int, s: int):
+    """XLA's "SAME" padding of one spatial dim: (low, high)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv2d(x, w, stride=1, padding="SAME"):
+    """NHWC input, HWIO filter, as the reference's dimension numbers.
+    ``F.conv2d`` refuses "same" at strides above 1, so SAME is padded
+    explicitly, XLA's way (the odd pixel goes high)."""
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if padding == "SAME":
+        (hl, hh), (wl, wh) = (_same_pad(x.shape[1], w.shape[0], stride),
+                              _same_pad(x.shape[2], w.shape[1], stride))
+    elif padding == "VALID":
+        (hl, hh), (wl, wh) = (0, 0), (0, 0)
+    else:                                   # explicit ((lo, hi), (lo, hi))
+        (hl, hh), (wl, wh) = padding
+    xn = F.pad(xn, (wl, wh, hl, hh))
+    return F.conv2d(xn, wn, stride=stride).permute(0, 2, 3, 1)
+
+
+def _pool(fn, x, window, stride):
+    """A "VALID" window reduction over an NHWC tensor."""
+    return fn(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+
+
+def _dropout(x, key, rate):
+    """Keep each element where its hashed word falls below (1 - rate)·2³²,
+    scaled by 1 / (1 - rate); rate 0 passes ``x`` through."""
+    if rate <= 0.0:
+        return x
+    keep = _random_bits(key.to(x.device), x.numel()).reshape(x.shape) \
+        < int((1.0 - rate) * 2 ** 32)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _random_normal(key, shape, dtype="float32"):
+    """Box–Muller over two uniform streams: z = √(−2 ln(1 − u₁))·cos(2πu₂)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    u = _uniform01(key, 2 * n)
+    z = torch.sqrt(-2.0 * torch.log1p(-u[:n])) * torch.cos(2 * np.pi * u[n:])
+    return z.reshape(shape).to(torch_dtype(dtype))
+
+
+def _random_uniform(key, shape, dtype="float32"):
+    n = int(np.prod(shape, dtype=np.int64))
+    return _uniform01(key, n).reshape(shape).to(torch_dtype(dtype))
+
+
+conv2d        = def_op("conv2d", _conv2d)
+max_pool2d    = def_op("max_pool2d", lambda x, *, window=2, stride=2: _pool(F.max_pool2d, x, window, stride))
+avg_pool2d    = def_op("avg_pool2d", lambda x, *, window=2, stride=2: _pool(F.avg_pool2d, x, window, stride))
+resize_nearest = def_op(
+    "resize_nearest",
+    lambda x, *, factor=2: x.repeat_interleave(factor, 1).repeat_interleave(factor, 2))
+_dropout_raw  = def_op("dropout", _dropout)
+_random_normal_raw = def_op("random_normal", _random_normal)
+_random_uniform_raw = def_op("random_uniform", _random_uniform)
+
+
 def getitem(a, *, idx):
     return _getitem_raw(a, idx=_idx_encode(idx))
+
+
+def dropout(x, rate: float):
+    """Dropout with the rate captured as a baked constant (TF semantics).
+
+    ``rate`` changing across iterations (e.g. via Python object mutation,
+    Figure 1c) produces a trace branch that Terra handles transparently.
+    The mask comes from the op's key feed by the counter hash above.
+    """
+    return _dropout_raw(x, _next_key(), rate=float(rate))
+
+
+def random_normal(shape, dtype="float32"):
+    return _random_normal_raw(_next_key(), shape=tuple(shape), dtype=dtype)
+
+
+def random_uniform(shape, dtype="float32"):
+    return _random_uniform_raw(_next_key(), shape=tuple(shape), dtype=dtype)
 
 
 def mean_squared_error(pred, target):

@@ -184,6 +184,8 @@ class Variable:
     def assign(self, new_value) -> None:
         eng = current_engine()
         if eng is None:
+            if isinstance(new_value, TerraTensor):     # an eager op result
+                new_value = new_value.value()
             self._value = as_tensor(new_value)
             return
         eng.assign_variable(self, new_value)

@@ -106,10 +106,18 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
                 unroll: bool = False):
     """SSD forward (shapes as ``ssd_chunked_plain``).  CUDA tensors launch
     the SSD-scan kernel, CPU tensors run the plain chunked math; any other
-    device raises.  ``unroll`` (the reference's dry-run switch) is kept
-    only so that the reference's calls carry over; it has no effect."""
+    device raises.  The kernel has no backward yet, so on CUDA a call that
+    autograd would differentiate raises rather than cut the gradient (CPU
+    training differentiates the plain math).  ``unroll`` (the reference's
+    dry-run switch) is kept only so that the reference's calls carry over;
+    it has no effect."""
     del unroll
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            raise NotImplementedError(
+                "the SSD-scan kernel has no backward yet, so mamba2 trains "
+                "on the CPU only; see ROADMAP.md")
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                              return_final=return_final)
     if x.device.type != "cpu":

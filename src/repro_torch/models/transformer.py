@@ -10,13 +10,22 @@ a Python loop indexes it.
 The port carries the ``attn`` block kinds (llama-family) and ``ssd``
 (Mamba-2).  MoE, RG-LRU, cross-attention and encoder blocks raise
 ``NotImplementedError`` until their slices.
+
+Remat: with ``cfg.remat`` and autograd recording, each super-block runs
+under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
+its scanned body in ``jax.checkpoint``: policy ``"full"`` keeps only the
+block's input, ``"dots"`` also keeps every matmul output (selective
+checkpointing, the counterpart of ``dots_saveable``).  ``"attn_out"``
+raises until it is ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -200,6 +209,37 @@ def _superblock(cfg, slot_params, x, *, positions, caches=None,
     return x, new_caches
 
 
+# matmul outputs the "dots" policy keeps (matmul and einsum reach these)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, body):
+    """``body`` rematerialized per ``cfg.remat_policy`` while autograd
+    records (serving and eval run it as it is)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    if cfg.remat_policy == "full":
+        context_fn = ckpt.noop_context_fn
+    elif cfg.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    else:
+        raise NotImplementedError(
+            f"remat policy {cfg.remat_policy!r} is not ported yet; see "
+            f"ROADMAP.md")
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(body, *args, use_reentrant=False,
+                               context_fn=context_fn, **kwargs)
+    return run
+
+
 def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
     per-layer cache outputs are re-stacked along the leading axis."""
@@ -210,13 +250,14 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     cache_bt = caches.get("bt") if caches is not None else None
     scanned = (caches["layers"] if caches is not None
                else [None] * len(cfg.block_pattern))
+    body = _remat(cfg, _superblock)
     ys = []
     for i in range(cfg.n_pattern_blocks):
         slot_params, slot_caches = tree_map(lambda a: a[i],
                                             (params["blocks"], scanned))
-        x, y = _superblock(cfg, slot_params, x, positions=positions,
-                           caches=slot_caches, cache_len=cache_len,
-                           cache_bt=cache_bt)
+        x, y = body(cfg, slot_params, x, positions=positions,
+                    caches=slot_caches, cache_len=cache_len,
+                    cache_bt=cache_bt)
         ys.append(y)
     new_layer_caches = (tree_map(lambda *zs: torch.stack(zs), *ys)
                         if caches is not None else None)

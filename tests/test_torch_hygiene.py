@@ -45,6 +45,24 @@ def test_no_source_line_imports_jax_or_the_reference():
     assert not bad, "\n".join(bad)
 
 
+def test_training_modules_are_scanned_and_import_no_jax():
+    """The programs, the trainer stack and the sharding policy are among
+    the scanned files (the scan above and the import check below cover
+    them), and none of them names JAX or the reference at all."""
+    files = _port_files()
+    want = [os.path.join(PORT, "programs.py"),
+            os.path.join(PORT, "parallel", "sharding.py")] + [
+        os.path.join(PORT, "train", n) for n in
+        ("checkpoint.py", "data.py", "optimizer.py", "train_step.py",
+         "trainer.py")]
+    for path in want:
+        assert path in files, path
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"\bimport jax|\bfrom jax\b|\bml_dtypes\b|"
+                             r"\bfrom repro\.|\bimport repro\b", src), path
+
+
 def test_executor_passes_scheduler_events_kernels_modules_stay_small():
     """The reference's decomposition contract (tests/test_executor.py),
     held for the port's counterparts."""
@@ -110,6 +128,38 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     s.close()
 
 
+def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(
+        no_cuda, tmp_path):
+    from repro_torch import programs
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import GradientTape, imperative, ops
+    from repro_torch.train.trainer import Trainer
+
+    cfg = smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, use_terra=False)
+    for name in sorted(programs.REGISTRY):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            programs.REGISTRY[name]("terra")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with imperative():
+            pass
+    # asked for explicitly, the CPU works
+    tr = Trainer(cfg, batch=2, seq_len=8, log_every=1, device="cpu")
+    assert np.isfinite(tr.train(2, verbose=False)[-1][1])
+    tr._iteration.close()
+    step, _ = programs.REGISTRY["resnet"]("imperative", device="cpu")
+    with imperative(device="cpu") as imp:
+        assert np.isfinite(float(step(0)))
+        imp.step()
+        w = ops.identity(np.ones(2, np.float32))
+        with GradientTape() as tape:
+            loss = ops.reduce_sum(ops.square(w))
+        assert tape.gradient(loss, [w])[0].numpy().tolist() == [2.0, 2.0]
+
+
 def test_kernel_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     """A non-CPU tensor reaching a kernel wrapper launches its kernel or
     raises; the plain version runs only for CPU tensors."""
@@ -154,3 +204,24 @@ def test_chip_smoke_refuses_without_cuda_or_outside_a_checkout(tmp_path):
     out = subprocess.run([sys.executable, str(lone)], capture_output=True,
                          text=True, env=env, cwd=str(tmp_path), timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+@pytest.mark.cuda
+def test_cuda_random_bits_equal_the_cpu_bits():
+    """The random ops' counter hash makes the same bits on the card and
+    the CPU, so a dropout mask does not depend on the device.  The kept
+    values' division by (1 - rate) may round differently on the card, by
+    at most one float32 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py compares dropblock's "
+                    "losses card vs CPU there")
+    from repro_torch.core import ops as tops
+    key = tops.draw_key(torch.Generator().manual_seed(2))
+    cpu = tops._random_bits(key, 1 << 20)
+    card = tops._random_bits(key.cuda(), 1 << 20)
+    assert torch.equal(card.cpu(), cpu)
+    x = torch.randn(64, 1024)
+    on_card = tops.op_impl("dropout")(x.cuda(), key.cuda(), rate=0.1).cpu()
+    on_cpu = tops.op_impl("dropout")(x, key, rate=0.1)
+    assert torch.equal(on_card != 0, on_cpu != 0)
+    torch.testing.assert_close(on_card, on_cpu, rtol=2 ** -23, atol=0)

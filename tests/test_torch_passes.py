@@ -1,9 +1,10 @@
 """The port's pass pipeline against the JAX reference's.
 
-The ``tests/test_passes.py`` programs (minus the two that need random ops
-and ``GradientTape``, which arrive with the training slice) run through
-both engines on the same inputs: fetched values must agree and the pass
-counters must be equal.  The kernel substitutions run the wrappers' plain
+The ``tests/test_passes.py`` programs run through both engines on the
+same inputs: fetched values must agree and the pass counters must be
+equal.  The one that draws random numbers (``cse_never_merges_feed_slots``)
+compares counters only, since the port's draws cannot match
+``jax.random``'s.  The kernel substitutions run the wrappers' plain
 versions here, on the CPU, as the reference runs its kernels in interpret
 mode.
 """
@@ -36,6 +37,7 @@ class Pkg:
     def __init__(self, core, **kw):
         self.ops, self.Variable, self._f, self.kw = (
             core.ops, core.Variable, core.function, kw)
+        self.GradientTape = core.GradientTape
 
     def function(self, fn=None, **kw):
         kw = {**self.kw, **kw}
@@ -293,13 +295,44 @@ def passes_rerun_after_retrace(pkg):
     return outs, [step]
 
 
+def kernel_sub_skips_differentiated(pkg):
+    """Tape consumers keep the unfused chain alive: substitution must not
+    fire when attention intermediates feed .vjp ops."""
+    ops = pkg.ops
+    D, S = 8, 4
+    mask = np.tril(np.ones((S, S), np.float32))
+    wv = pkg.Variable(np.eye(D).astype(np.float32), "ks_wv")
+
+    @pkg.function(optimize=KERNEL_PIPE)
+    def step(q, k, x):
+        with pkg.GradientTape() as tape:
+            v = ops.matmul(x, wv.read())
+            s = ops.einsum(q, k, expr="bsd,btd->bst")
+            s = ops.add(ops.mul(s, 1.0 / D ** 0.5),
+                        ops.mul(ops.sub(mask, 1.0), 1e9))
+            o = ops.einsum(ops.softmax(s, axis=-1), v, expr="bst,btd->bsd")
+            loss = ops.reduce_sum(o)
+        (gv,) = tape.gradient(loss, [wv])
+        wv.assign_sub(ops.mul(gv, 0.01))
+        return float(loss)
+
+    r = np.random.RandomState(8)
+    outs = []
+    for _ in range(4):
+        q, k, x = (r.randn(2, S, D).astype(np.float32) for _ in range(3))
+        outs.append(step(q, k, x))
+    assert step.phase == "co-execution"
+    assert step.stats["kernels_substituted"] == 0
+    return outs, [step]
+
+
 PROGRAMS = [dce_dead_ops, dce_keeps_writes_and_fetches,
             cse_var_read_duplicates, cse_hoists_across_switch,
             feed_folding_diverges, feed_folding_off_when_safe,
             coalescing_late_reads, coalescing_keeps_consumed,
             coalescing_mid_iteration_reads, kernel_rmsnorm,
             kernel_attention, optimize_none_inert,
-            passes_rerun_after_retrace]
+            passes_rerun_after_retrace, kernel_sub_skips_differentiated]
 
 
 @pytest.mark.parametrize("prog", PROGRAMS, ids=lambda p: p.__name__)
@@ -316,6 +349,36 @@ def test_pass_counters_and_values_match_reference(prog):
     finally:
         for s in jsteps + tsteps:
             s.close()
+
+
+def cse_never_merges_feed_slots(pkg):
+    """Two ops consuming avals-identical feeds are NOT a common
+    subexpression: the fed values are independent (per-iteration RNG keys
+    are the canonical case)."""
+    ops = pkg.ops
+
+    @pkg.function(optimize="all")
+    def step(x):
+        a = ops.random_normal((4,))          # distinct key feeds
+        b = ops.random_normal((4,))
+        return float(ops.reduce_sum(ops.sub(a, b)))
+
+    return [step(x) for x in _xs(8, seed=3)], [step]
+
+
+def test_cse_never_merges_feed_slots():
+    _, (js,) = cse_never_merges_feed_slots(JAX)
+    outs, (ts,) = cse_never_merges_feed_slots(PORT)
+    try:
+        assert ts.phase == "co-execution"
+        assert ts.stats["cse_hits"] == 0
+        # if the two draws were merged the difference would be exactly zero
+        assert any(abs(o) > 1e-6 for o in outs)
+        assert {k: ts.stats.get(k) for k in PASS_KEYS} == \
+            {k: js.stats.get(k) for k in PASS_KEYS}
+    finally:
+        js.close()
+        ts.close()
 
 
 def test_kernel_substitutions_fire_on_cpu():

@@ -356,3 +356,31 @@ def test_cuda_ssd_scan_matches_plain_versions(dtype, card):
         y2 = kops.ssd_scan(*t, chunk=case[-1])       # no final state
         torch.testing.assert_close(y2, y, rtol=0, atol=0)
         assert kops.ssd_scan.launches == before + 2
+
+
+def test_ssd_chunked_differentiates_the_plain_math_on_the_cpu():
+    """CPU training differentiates the chunked math: a gradient reaches
+    every input."""
+    case = SSD_SWEEP[0]
+    t = [a.requires_grad_(a.is_floating_point())
+         for a in _typed(_ssd_inputs(case), "float32")]
+    y = TS.ssd_chunked(*t, case[-1])
+    gs = torch.autograd.grad(y.square().sum(), t)
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in gs)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunked_raises_under_autograd(card):
+    """The SSD kernel has no backward: on the card a call that autograd
+    would differentiate raises instead of cutting the gradient; without
+    grad the kernel runs."""
+    case = SSD_SWEEP[0]
+    t = _typed(_ssd_inputs(case), "float32", card)
+    x = t[0].clone().requires_grad_(True)
+    before = kops.ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TS.ssd_chunked(x, *t[1:], case[-1])
+    assert kops.ssd_scan.launches == before
+    with torch.no_grad():
+        TS.ssd_chunked(x, *t[1:], case[-1])
+    assert kops.ssd_scan.launches == before + 1
