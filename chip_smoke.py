@@ -81,7 +81,26 @@ Phases, in order; any failure exits non-zero and prints no result:
               eager (``use_terra=False``) and CPU losses within 1e-3
               relative.  Last, mamba2 training on the card raises
               ``NotImplementedError`` (the SSD kernel has no backward).
-11. profile — only with ``--profile``: steady-state decode time per step,
+11. capture — captured segments (``core/capture.py``) against
+              ``disable_jit()``.  Equality, float32, TF32 off: llama3-8b
+              decode (4 layers; co-executed with the kernels and
+              ``use_terra=False``) and mamba2-130m serving (4 layers)
+              give equal greedy tokens in all four arms; the scoring
+              program (4 layers, 4 x 512) within phase 6's 1e-4; the
+              trainer (2 layers of the 100m preset) within phase 10's
+              PARITY_RTOL.  Each captured arm has every segment captured
+              and none compiled eager.  Then full width and depth, bf16,
+              both arms in turns (three each) in one call: llama3-8b
+              steady decode, mamba2 serving batches, scoring calls and
+              100m training steps, each with time per step, device time
+              and busy share, peak memory, graphs, replays, recaptures
+              and bytes copied into and out of graphs per step; in the
+              captured windows the paged, flash and rmsnorm counters
+              must advance by the profiler's launch counts.  Last, the
+              closed engines must have returned their memory.
+              Every earlier phase runs captured as well, with its launch
+              assertions unchanged (a replay adds its graph's launches).
+12. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -1638,6 +1657,8 @@ def phase_train():
               log_every=1, ckpt_every=TRAIN_CKPT_EVERY)
     d = tempfile.mkdtemp(prefix="train_100m_")
     try:
+        log(f"train: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+            f"allocated before the trainer")
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, opt_cfg, ckpt_dir=d, **kw)
         n = M.param_count(tr.state_tree()["params"])
@@ -1831,6 +1852,381 @@ def phase_mamba2_profile(out_dir):
 
 
 # --------------------------------------------------------------------------
+# phase 11: captured segments (core/capture.py) against disable_jit()
+# --------------------------------------------------------------------------
+
+CAPTURE_EQ_LAYERS = 4          # the equality arms' depth (float32)
+
+
+def arm_context(eager):
+    """The ``disable_jit()`` block of an eager arm (nothing for the
+    captured one): an arm's segments and chains are compiled inside it."""
+    import contextlib
+    from repro_torch.core import capture
+    return capture.disable_jit() if eager else contextlib.nullcontext()
+
+
+def captured_segments(engine):
+    """(captured, total) segments of an engine's current program, and its
+    CaptureContext counters."""
+    from repro_torch.core.capture import CapturedFn
+    sps = engine.gp.seg_progs if engine.gp is not None else []
+    n = sum(isinstance(sp.fn, CapturedFn) for sp in sps)
+    return n, len(sps), dict(engine.capture.stats)
+
+
+def check_captured(label, engine):
+    """Every segment of the path's program is a CUDA graph, none ran
+    eagerly, and graphs were replayed."""
+    n, total, st = captured_segments(engine)
+    log(f"capture {label}: {n} of {total} segments captured, "
+        f"{json.dumps(st)}")
+    check(total > 0 and n == total and st["eager_fns"] == 0,
+          f"{label}: {n} of {total} segments captured, "
+          f"{st['eager_fns']} compiled eager")
+    check(st["graphs"] > 0 and st["replays"] > 0,
+          f"{label}: no graph was captured and replayed")
+
+
+def check_eager(label, engine):
+    n, total, st = captured_segments(engine)
+    log(f"capture {label} under disable_jit(): {n} of {total} segments "
+        f"captured")
+    check(n == 0 and st["graphs"] == 0, f"{label}: captured under "
+          f"disable_jit()")
+
+
+def capture_equality():
+    """Captured and disable_jit() arms at full width, float32, TF32 off:
+    llama decode (4 layers; co-executed and use_terra=False), the scoring
+    program (4 layers), the trainer (2 layers of the 100m preset) and
+    mamba2 serving (4 layers): tokens equal, scores within 1e-4 (phase
+    6's rule), losses within PARITY_RTOL (phase 10's)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, kw in (("llama3-8b", dict(optimize=KERNELS, **SERVE_KW)),
+                     ("mamba2-130m", dict(max_slots=4, max_len=512))):
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=CAPTURE_EQ_LAYERS,
+                                  dtype="float32", param_dtype="float32")
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+        toks = {}
+        for terra in (True, False):
+            for eager in (False, True):
+                reqs = make_requests(cfg, 6, seed=7, prompt_lo=16,
+                                     prompt_hi=128, new_lo=16, new_hi=24)
+                with arm_context(eager):
+                    sched = ContinuousBatchingScheduler(
+                        cfg, params, use_terra=terra, **kw)
+                    sched.serve(reqs)
+                label = f"{arch} {'terra' if terra else 'use_terra=False'}"
+                if terra:
+                    eng = sched._tf.engine
+                    (check_eager if eager else check_captured)(label, eng)
+                else:
+                    ctx = sched._capture
+                    log(f"capture {label}: {json.dumps(ctx and ctx.stats)}")
+                    check((ctx is None) == eager
+                          and (eager or ctx.stats["replays"] > 0),
+                          f"{label}: baseline capture {ctx and ctx.stats}")
+                sched.close()
+                toks[(terra, eager)] = [r.out_tokens for r in reqs]
+        base = toks[(True, True)]
+        for key, got in toks.items():
+            check(got == base, f"{arch} greedy tokens differ: arm {key} vs "
+                  f"terra disable_jit")
+        log(f"capture {arch}: greedy tokens equal, captured == "
+            f"disable_jit() for terra and use_terra=False "
+            f"({sum(len(t) for t in base)} tokens)")
+        del params, sched
+        release()
+
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=CAPTURE_EQ_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    scores = {}
+    for eager in (False, True):
+        with arm_context(eager):
+            step = llama_score_program(core, cfg, params, SCORE_BATCH,
+                                       SCORE_SEQ)
+            scores[eager] = [score_call(step, cfg, i) for i in range(5)]
+            step.wait()
+        (check_eager if eager else check_captured)("scoring", step.engine)
+        step.close()
+    diff = max(float(abs(a - b).max())
+               for a, b in zip(scores[False], scores[True]))
+    log(f"capture scoring: float32 scores captured vs disable_jit() max "
+        f"abs diff {diff:.3e} (tol 1e-4)")
+    check(diff <= 1e-4, f"captured scores differ: {diff:.3e}")
+    del params, step
+    release()
+
+    pcfg = dataclasses.replace(ModelConfig(**TRAIN_100M["cfg"]),
+                               n_layers=PARITY_LAYERS, dtype="float32",
+                               param_dtype="float32")
+    init = tempfile.mkdtemp(prefix="capture_init_")
+    losses = {}
+    try:
+        Trainer(pcfg, OptConfig(), ckpt_dir=init, batch=PARITY_BATCH,
+                seq_len=PARITY_SEQ, use_terra=False,
+                device="cpu").train(0, verbose=False)
+        for eager in (False, True):
+            with arm_context(eager):
+                tr = Trainer(pcfg, OptConfig(warmup_steps=2,
+                                             total_steps=100),
+                             ckpt_dir=init, batch=PARITY_BATCH,
+                             seq_len=PARITY_SEQ, log_every=1)
+                tr.ckpt_dir = None
+                losses[eager] = [l for _, l in tr.train(PARITY_STEPS,
+                                                        verbose=False)]
+            eng = tr._iteration.engine
+            (check_eager if eager else check_captured)("train", eng)
+            tr._iteration.close()
+    finally:
+        shutil.rmtree(init, ignore_errors=True)
+    a, b = np.asarray(losses[False]), np.asarray(losses[True])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    log(f"capture train: float32 losses captured vs disable_jit() max rel "
+        f"err {rel:.3e} (rtol {PARITY_RTOL}): {json.dumps(a.tolist())}")
+    check(np.all(np.isfinite(a)) and rel <= PARITY_RTOL,
+          f"captured losses differ: {rel:.3e}")
+    del tr
+    release()
+
+
+def busy_window(run):
+    """(wall s, device busy s, units, {kernel: launches}) of one ``run()``
+    under torch.profiler: the device time summed over every kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        units = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in evts) / 1e6
+    return wall, busy, units, {e.key: e.count for e in evts}
+
+
+PROFILED_SHARE = 0.9     # least share of counted launches the profiler sees
+CAPTURE_TURNS = ("eager", "captured", "captured", "eager", "eager",
+                 "captured")
+
+
+def capture_turns(label, unit, arms, kernels=()):
+    """Both arms of one path in turns, then one profiler window each:
+    time per unit (host wall with the card synced, median of the arm's
+    three turns), device time per unit (profiler), the busy share (device
+    time over the turns' wall; the profiler window's own share beside
+    it), peak memory, graphs, replays and bytes copied into and out of
+    graphs per unit.  ``arms``: name -> (run, ctx), where ``run()`` does
+    one timed batch in its arm's context and returns its units.
+    ``kernels``: (launch counter, kernel names, launches per unit); in
+    the captured window each counter must advance by exactly that many
+    launches per unit (a replay adds its graph's launches without calling
+    the wrapper), and the profiler must see those kernels launched at
+    least PROFILED_SHARE times as often as counted and no more often (a
+    window drops some of its events now and then: 0.3-4.3 % of the paged
+    launches on an H100, as phase 2's medians allow for; a graph that
+    misses its kernels shows far less; the share is logged)."""
+    import numpy as np
+    import torch
+    times = {name: [] for name in arms}
+    out = {}
+    for name in CAPTURE_TURNS:
+        run, ctx = arms[name]
+        st0 = dict(ctx.stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        units = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        times[name].append(wall / units * 1e3)
+        row = out.setdefault(name, {})
+        row["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+        for k in ("copy_in_bytes", "copy_out_bytes"):
+            row[f"{k}_per_{unit}"] = (ctx.stats[k] - st0[k]) // units
+        for k in ("graphs", "replays", "recaptures"):
+            row[k] = ctx.stats[k]
+    for name, (run, ctx) in arms.items():
+        before = read_counts()
+        wall, busy, units, launched = busy_window(run)
+        after = read_counts()
+        ms = float(np.median(times[name]))
+        row = out[name]
+        row["ms_per_" + unit] = round(ms, 3)
+        row["turns_ms"] = [round(t, 3) for t in times[name]]
+        row["device_ms_per_" + unit] = round(busy / units * 1e3, 3)
+        row["busy_share"] = round(busy / units * 1e3 / ms, 4)
+        row["busy_share_profiled"] = round(busy / wall, 4)
+        for counter, names, per_unit in kernels:
+            seen = sum(n for k, n in launched.items()
+                       if any(x in k for x in names))
+            counted = after[counter] - before[counter]
+            row[f"{counter}_launches"] = [counted, seen]
+            if name == "captured":
+                check(counted == units * per_unit
+                      and PROFILED_SHARE * counted <= seen <= counted,
+                      f"{label}: {counter} counted {counted} launches "
+                      f"({units} x {per_unit} expected), the profiler "
+                      f"saw {seen}")
+    log(f"capture timing {label}: {json.dumps(out)}")
+    return out
+
+
+def capture_timing():
+    """Full width and depth, bf16, both arms in one call: llama3-8b steady
+    decode (the profile phase's batch: 8 requests of 128 tokens, 48
+    new), mamba2-130m serving (16 requests of 512-527 tokens, 64 new),
+    the scoring program (4 x 512 tokens, 5 calls a turn) and the 100m
+    trainer (10 steps a turn, each loss fetched)."""
+    import torch
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    results = {}
+    for arch, kw, shape in (
+            ("llama3-8b", dict(optimize=KERNELS, **SERVE_KW),
+             (8, 128, 128, 48)),
+            ("mamba2-130m", MAMBA_SERVE_KW, (16, 512, 527, 64))):
+        cfg = get_config(arch)
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        arms, engines = {}, {}
+        for name in ("captured", "eager"):
+            eager = name == "eager"
+            with arm_context(eager):
+                sched = ContinuousBatchingScheduler(cfg, params, **kw)
+
+            def run(sched=sched, eager=eager, seed=[300]):
+                seed[0] += 1
+                reqs = make_requests(cfg, shape[0], seed[0], shape[1],
+                                     shape[2], shape[3], shape[3])
+                st0 = sched.stats["decode_steps"]
+                with arm_context(eager):
+                    sched.serve(reqs)
+                return (sched.stats["decode_steps"] - st0
+                        if arch == "llama3-8b" else 1)
+
+            run()                           # tracing, steady entry
+            run()                           # warm-up and capture
+            engines[name] = sched
+            arms[name] = (run, sched._tf.engine.capture)
+        results[arch] = capture_turns(
+            arch, "decode_step" if arch == "llama3-8b" else "batch", arms,
+            [("paged_attention", ("paged_split_kernel",), cfg.n_layers)]
+            if arch == "llama3-8b" else ())
+        check_captured(f"{arch} full depth", engines["captured"]._tf.engine)
+        for sched in engines.values():
+            sched.close()
+        del params, arms, engines, sched, run
+        release()
+
+    cfg = get_config("llama3-8b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    arms, steps = {}, {}
+    for name in ("captured", "eager"):
+        eager = name == "eager"
+        with arm_context(eager):
+            step = llama_score_program(core, cfg, params, SCORE_BATCH,
+                                       SCORE_SEQ)
+            for i in range(5):      # trace (2 calls), warm-up, capture
+                score_call(step, cfg, i)
+            step.wait()
+
+        def run(step=step, eager=eager):
+            with arm_context(eager):
+                for i in range(5):
+                    score_call(step, cfg, 100 + i)
+                step.wait()
+            return 5
+
+        steps[name] = step
+        arms[name] = (run, step.engine.capture)
+    results["scoring"] = capture_turns(
+        "scoring", "call", arms,
+        [("flash_attention", ("flash_bf16_kernel",), cfg.n_layers),
+         ("rmsnorm", ("rmsnorm_reg_kernel", "rmsnorm_kernel"),
+          2 * cfg.n_layers + 1)])
+    check_captured("scoring full depth", steps["captured"].engine)
+    for step in steps.values():
+        step.close()
+    del params, arms, steps, step, run
+    release()
+
+    cfg = ModelConfig(**TRAIN_100M["cfg"])
+    arms, trainers = {}, {}
+    for name in ("captured", "eager"):
+        eager = name == "eager"
+        with arm_context(eager):
+            tr = Trainer(cfg, OptConfig(warmup_steps=5, total_steps=100),
+                         batch=TRAIN_100M["batch"],
+                         seq_len=TRAIN_100M["seq_len"], log_every=1)
+            tr.train(6, verbose=False)      # trace, warm-up, capture
+
+        def run(tr=tr, eager=eager):
+            with arm_context(eager):
+                tr.train(10, verbose=False)
+                tr._iteration.wait()
+            return 10
+
+        trainers[name] = tr
+        arms[name] = (run, tr._iteration.engine.capture)
+    results["train-100m"] = capture_turns("train 100m", "step", arms)
+    check_captured("train 100m", trainers["captured"]._iteration.engine)
+    for tr in trainers.values():
+        tr._iteration.close()
+    del arms, trainers, tr, run
+    release()
+    return results
+
+
+def phase_capture():
+    import torch
+    release()
+    base = torch.cuda.memory_allocated() / 2**30
+    log("capture: captured segments against disable_jit(); equality at "
+        f"{CAPTURE_EQ_LAYERS} layers in float32, then timing at full depth "
+        f"({base:.3f} GiB allocated before)")
+    capture_equality()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    results = capture_timing()
+    release()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"capture: {left:.3f} GiB allocated after every engine closed and "
+        f"release() ({left - base:+.3f} GiB over the phase)")
+    check(left - base < 0.25, f"closed engines hold {left - base:.3f} GiB")
+    log("capture table: " + json.dumps(results))
+    for path, arms in results.items():
+        a, b = arms["eager"], arms["captured"]
+        key = next(k for k in a if k.startswith("ms_per_"))
+        log(f"capture {path}: {key} eager {a[key]} -> captured {b[key]} "
+            f"({a[key] / b[key]:.2f}x), busy {a['busy_share']:.3f} -> "
+            f"{b['busy_share']:.3f}, peak {a['peak_gib']} -> "
+            f"{b['peak_gib']} GiB")
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1887,6 +2283,7 @@ def main() -> int:
         phase_mamba2_equality()
         phase_programs()
         phase_train()
+        phase_capture()
         if args.profile:
             phase_profile(os.path.join(HERE, "chiprun_out"))
             phase_mamba2_profile(os.path.join(HERE, "chiprun_out"))

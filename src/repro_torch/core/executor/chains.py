@@ -6,9 +6,11 @@ the coordinator swaps in a :class:`ChainDispatcher`: the exact linear chain
 of already-validated ops becomes one callable — selectors are resolved by
 construction, so no switch machinery is needed — and every produced value
 gets a future.  Chains are cached by their op/src structure in an
-engine-lifetime cache (shared across TraceGraph families: a chain callable
-runs eagerly on whatever shapes it is given, so sibling shape classes reuse
-the same chain callables).
+engine-lifetime cache, shared across TraceGraph families: on the CPU a
+chain callable runs eagerly on whatever shapes it is given, and on a CUDA
+card it is a :class:`~repro_torch.core.capture.CapturedFn`, whose graph
+key carries the input shapes, so sibling shape classes share the callable
+and get a graph each.
 
 Split out of dispatch.py, which keeps the Dispatcher protocol and the
 segment dispatcher; ``repro_torch.core.executor.dispatch`` re-exports
@@ -129,11 +131,12 @@ class ChainDispatcher(Dispatcher):
             arg_plans.append(tuple(plan))
             key_parts.append((e.op_name, e.attrs, e.location,
                               tuple((p[0],) + tuple(p[1:]) for p in plan)))
-        key = (start == 0, tuple(key_parts))
+        capture = self.parent.gp.capture
+        key = (start == 0, capture is not None, tuple(key_parts))
 
         fn = self.chain_cache.get(key)
         if fn is None:
-            fn = _build_chain_fn(entries, arg_plans)
+            fn = _build_chain_fn(entries, arg_plans, capture)
             self.chain_cache[key] = fn
 
         # futures for every produced value
@@ -194,9 +197,11 @@ class ChainDispatcher(Dispatcher):
         self.start = end
 
 
-def _build_chain_fn(entries, arg_plans):
+def _build_chain_fn(entries, arg_plans, capture=None):
     """The linear op chain as one callable: (var_vals, feed_vals,
-    ext_vals) -> flat outs, run eagerly without autograd."""
+    ext_vals) -> flat outs, without autograd; captured through the
+    engine's CaptureContext on a CUDA card (every out escapes to a future
+    or the store, so every out is copied out of the graph)."""
     impls = [ops_mod.OPS[e.op_name].impl for e in entries]
     attrs = [dict(e.attrs) for e in entries]
     plans = list(arg_plans)
@@ -225,4 +230,8 @@ def _build_chain_fn(entries, arg_plans):
             flat_out.extend(outs)
         return tuple(flat_out)
 
-    return chain_fn
+    if capture is None:
+        return chain_fn
+    if not all(ops_mod.OPS[e.op_name].capturable for e in entries):
+        return capture.eager(chain_fn)
+    return capture.wrap(chain_fn)

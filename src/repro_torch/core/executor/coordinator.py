@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.core import capture as capture_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.events import EventStream
 from repro_torch.core.events import emit as ev
@@ -86,6 +87,7 @@ class TerraEngine(PythonRunnerOps, VariableOps):
         self.skip_files: Tuple[str, ...] = ()
         self._seed = int(seed)
         self._chain_cache: Dict[Tuple, Any] = {}
+        self.capture = capture_mod.context_for(self.device)   # CUDA graphs
         # sampled device-time profiling cadence (DESIGN.md §15); 0 = off
         self.profile_every = 0
 
@@ -221,10 +223,10 @@ class TerraEngine(PythonRunnerOps, VariableOps):
                 opt = run_passes(self.tg, var_avals, self.pipeline,
                                  fam.feed_obs, fam.fetch_obs,
                                  backend=self.device.type)
-                self.gp = GraphProgram(self.tg, var_avals,
-                                       seg_cache=self.seg_cache,
-                                       family_key=self.family.key,
-                                       opt=opt, device=self.device)
+                self.gp = GraphProgram(
+                    self.tg, var_avals, seg_cache=self.seg_cache,
+                    family_key=self.family.key, opt=opt,
+                    device=self.device, capture=self.capture)
                 self.gp.opt_token = token
                 if opt is not None:
                     for k, v in opt.counters.items():
@@ -355,3 +357,4 @@ class TerraEngine(PythonRunnerOps, VariableOps):
         self.runner.drain()
         self.runner.stop()
         self.events.close()
+        capture_mod.release(self.capture)

@@ -9,7 +9,8 @@ used to be duplicated inside the runner god-module:
   Input Feeding values, Case Select / Loop Cond arrays, carried values and
   variable buffers.  Donation-eligible variable buffers (computed statically
   per segment by graphgen, DESIGN.md §4.2) travel in their own argument;
-  this port does not donate them yet, so ``donated_bytes`` stays 0.
+  the segment writes the variable's new value into them in place, and
+  ``donated_bytes`` counts them as the reference does.
 
 * :class:`ChainDispatcher` — path-specialized dispatch for gating fetches
   that are *not* at a top-level segment boundary (e.g. inside a branch
@@ -176,9 +177,10 @@ class SegmentDispatcher(Dispatcher):
             def run(sp=sp, plan=plan, feeds=tuple(feeds), sels=sels,
                     trips=trips, futures=futures, si=si,
                     profile=self.profile):
-                # nothing is donated yet: ``donated_bytes`` stays 0
                 don_in = tuple(store.read(v) for v in plan.don_var_ids)
                 keep_in = tuple(store.read(v) for v in plan.keep_var_ids)
+                if don_in:
+                    stats["donated_bytes"] += sum(b.nbytes for b in don_in)
                 carries = tuple(iter_env[k] for k in plan.carries_in)
                 if profile:
                     pt0 = time.perf_counter()

@@ -164,14 +164,15 @@ class SegmentCache:
         program: per-program retention would evict sibling shape classes'
         callables on every regeneration.  Each cached fn closes over its
         originating GraphProgram, so without eviction every version bump
-        would pin a full old program; and because each family's TraceGraph
-        only grows (nodes, fetch annotations, trip sets are append-only),
-        a signature absent from every live program can only recur through
-        a re-created evicted family — eviction bounds memory to the live
-        segment set at the cost of that rare recompile.  The persist
-        layer is notified of the drop: its on-disk AOT executables
-        survive, so a re-created family reloads instead of recompiling
-        (DESIGN.md §14)."""
+        would pin a full old program (and, on the card, its CUDA graphs,
+        which go with the last reference); and because each family's
+        TraceGraph only grows (nodes, fetch annotations, trip sets are
+        append-only), a signature absent from every live program can only
+        recur through a re-created evicted family — eviction bounds memory
+        to the live segment set at the cost of that rare recompile.  The
+        persist layer is notified of the drop: its on-disk AOT
+        executables survive, so a re-created family reloads instead of
+        recompiling (DESIGN.md §14)."""
         dropped = [k for k in self._fns if k not in keys]
         if dropped and self.persist is not None:
             self.persist.on_segments_evicted(dropped)

@@ -250,9 +250,10 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
     events, iter_id = eng.events, eng.iter_id + 1
 
     def run():
-        # nothing is donated yet: ``donated_bytes`` stays 0
         don_in = tuple(store.read(v) for v in dp.don_var_ids)
         keep_in = tuple(store.read(v) for v in dp.keep_var_ids)
+        if don_in:
+            stats["donated_bytes"] += sum(b.nbytes for b in don_in)
         if profile:
             pt0 = time.perf_counter()
         try:

@@ -22,10 +22,27 @@ the compiled-graph adaptation of TF's mid-graph blocking ops); values
 produced in one segment and consumed in a later one are carried through
 explicit carry inputs/outputs.
 
-A segment is a plain Python callable that runs its ops eagerly under
-``torch.no_grad()`` on the engine's device; "compiling" a segment means
-building that callable (``segments_recompiled`` keeps that meaning).  No
-input buffer is donated or written in place, so ``donated_bytes`` stays 0.
+A segment is a Python callable that runs its ops under ``torch.no_grad()``
+on the engine's device.  On a CUDA card "compiling" a segment wraps that
+callable in a :class:`~repro_torch.core.capture.CapturedFn` — the port's
+``jax.jit``: warmed up once, then captured into a CUDA graph and replayed
+(core/capture.py); on the CPU, under ``capture.disable_jit()``, or when
+the segment holds an op registered as not capturable, it stays eager.
+``segments_recompiled`` counts callables built.
+
+Two compile-time analyses shape the callable:
+
+* **Liveness.**  The last top-level consumer of every value is computed
+  once; ``_interp`` drops a value from the segment's environment right
+  after it, so a segment holds only its live set (the counterpart of
+  XLA's buffer liveness, and the size of a captured graph's pool).
+  Carries out stay; fetches and variable writes are held by their own
+  buffers.
+* **Donation** (``_analyze_donation``, DESIGN.md §4.2).  A variable in
+  ``don_var_ids`` gets its new value written into the donated input's
+  storage, so the store keeps one buffer per variable; a written value
+  that a later segment will donate is made sole-owner first (cloned when
+  it shares storage with any other input or output).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import capture as capture_mod
 from repro_torch.core import ops as ops_mod
 from repro_torch.core.casing import NodeItem, Structure, SwitchItem
 from repro_torch.core.passes.analysis import FoldedConst
@@ -60,12 +78,15 @@ class SegProg:
     feed_keys: List[Tuple[int, int, Aval]]
     fetch_keys: List[Key]
     fn: Any = None                   # segment callable
-    # donation split of var_reads: ``don_var_ids`` buffers are the ones a
-    # donating backend may reuse (safe only for intermediates produced
+    # donation split of var_reads: ``don_var_ids`` buffers receive the
+    # variable's new value in place (safe only for intermediates produced
     # earlier in the same iteration — see _analyze_donation / DESIGN.md
-    # §4.2); this port passes them like any other input
+    # §4.2); ``owned_writes`` are the writes a later segment will donate
     don_var_ids: List[int] = dataclasses.field(default_factory=list)
     keep_var_ids: List[int] = dataclasses.field(default_factory=list)
+    owned_writes: List[int] = dataclasses.field(default_factory=list)
+    # liveness: env keys to drop after each top-level item
+    frees: List[Tuple[Key, ...]] = dataclasses.field(default_factory=list)
     signature: Any = None            # structural key for the segment cache
     plan: "DispatchPlan" = None      # precomputed dispatch layout (§4.4)
 
@@ -104,7 +125,7 @@ class GraphProgram:
 
     def __init__(self, tg: TraceGraph, var_avals: Dict[int, Aval],
                  jit_each: bool = True, seg_cache=None, family_key=None,
-                 opt=None, device=None):
+                 opt=None, device=None, capture=None):
         # ``tg`` stays the Walker-facing graph (validation, stamps,
         # divergence); ``otg`` is what this program COMPILES — the pass
         # pipeline's rewrite clone when optimization is on (uids
@@ -114,6 +135,9 @@ class GraphProgram:
         self.opt = opt
         # where folded feeds and switch phi zeros are made
         self.device = torch.device("cpu") if device is None else device
+        # the engine's CaptureContext (CUDA only); None compiles eager
+        self.capture = (capture if capture is not None and jit_each
+                        and not capture_mod.jit_disabled() else None)
         self._folded_dev: Dict[int, Any] = {}   # id(FoldedConst) -> tensor
         self.otg = opt.otg if opt is not None else tg
         self.version = tg.version
@@ -219,6 +243,8 @@ class GraphProgram:
 
         # ---- donation analysis + compilation (through the segment cache) --
         self._analyze_donation()
+        for sp in self.seg_progs:
+            sp.frees = self._liveness(sp)
         self.donatable_var_ids = {v for sp in self.seg_progs
                                   for v in sp.don_var_ids}
         # ---- dispatch plans: bake the per-iteration layout (§4.4) --------
@@ -245,7 +271,9 @@ class GraphProgram:
                 # optimized graph + dead/alias/fold state), so a segment
                 # whose optimized form is unchanged is a cache hit even
                 # when coalescing or folding reshaped its neighbours
-                sp.signature = (jit_each, segment_signature(self, sp))
+                sp.signature = (jit_each, self.capture is not None,
+                                tuple(sp.owned_writes),
+                                segment_signature(self, sp))
                 sp.fn = seg_cache.get_or_build(
                     sp.signature,
                     lambda sp=sp: self._compile_segment(sp, jit_each))
@@ -306,9 +334,16 @@ class GraphProgram:
         holds them for rollback.  A producing value that is also a fetch
         output or a carry (or a switch phi, or shared by two variables)
         escapes the store, so it is retained and never donated either.
+        So does a buffer that a segment between its writer and its donor
+        reads as a kept input: torch ops return views, and a fetch, carry
+        or write of that segment may be a view of the buffer, which the
+        donation would overwrite (JAX's outputs never alias its inputs).
+        Reads after a write bind to the writer's product when tracing, so
+        such a read does not arise from a traced program.
         """
         # vid -> retained?  (present only once some segment wrote the vid)
         last_write: Dict[int, bool] = {}
+        writer: Dict[int, SegProg] = {}
         for sp in self.seg_progs:
             writes = set(sp.var_writes)
             don = [v for v in sp.var_reads
@@ -316,6 +351,11 @@ class GraphProgram:
             sp.don_var_ids = don
             don_set = set(don)
             sp.keep_var_ids = [v for v in sp.var_reads if v not in don_set]
+            for v in don:
+                writer[v].owned_writes.append(v)
+            for v in sp.keep_var_ids:
+                if v in last_write:
+                    last_write[v] = True
 
             prods = self._final_var_products(sp)
             seen_products: Dict[Key, int] = {}
@@ -329,6 +369,43 @@ class GraphProgram:
                         last_write[seen_products[p]] = True
                     seen_products[p] = v
                 last_write[v] = retained
+                writer[v] = sp
+
+    def _liveness(self, sp: SegProg) -> List[Tuple[Key, ...]]:
+        """Keys to drop from the segment's env after each top-level item:
+        every value after its last consumer (or right after its producer
+        when no item of the segment consumes it), except carries out."""
+        def consumed(uid):
+            if uid in self._dead:
+                return ()
+            alias = self._alias.get(uid)
+            if alias is not None:
+                return alias
+            return [(s[1], s[2]) for s in self._node(uid).srcs
+                    if s[0] == "node"]
+
+        last: Dict[Key, int] = {k: -1 for k in sp.carries_in}
+        for i, item in enumerate(sp.items):
+            if isinstance(item, NodeItem):
+                uids = [item.uid]
+                if item.uid not in self._dead:
+                    for oi in range(self._n_out(self._node(item.uid))):
+                        last[(item.uid, oi)] = i
+            else:
+                uids = [u for b in item.branches
+                        for u in self.structure.uids_in(b)]
+                for k in self.switch_spec(item, sp)[2]:
+                    last[k] = i
+            for uid in uids:
+                for k in consumed(uid):
+                    if k in last:
+                        last[k] = i
+        frees: List[List[Key]] = [[] for _ in sp.items]
+        keep = set(sp.carries_out)
+        for k, i in last.items():
+            if k not in keep and i >= 0:
+                frees[i].append(k)
+        return [tuple(f) for f in frees]
 
     # ------------------------------------------------------------------
     def _n_out(self, n: TGNode) -> int:
@@ -339,7 +416,7 @@ class GraphProgram:
     # ------------------------------------------------------------------
     def _compile_segment(self, sp: SegProg, jit_each: bool):
         # ``jit_each`` stays part of the segment signature for parity with
-        # the reference; every segment is the same eager callable
+        # the reference; ``self.capture`` already folds it in
         @torch.no_grad()
         def seg_fn(don_var_in: tuple, keep_var_in: tuple, feeds: tuple,
                    sels, trips, carries_in: tuple):
@@ -355,13 +432,56 @@ class GraphProgram:
                 "sels": sels,
                 "trips": trips,
             }
-            self._interp(sp.items, sp, ctx)
-            var_out = tuple(ctx["var_env"][v] for v in sp.var_writes)
-            fetches = tuple(ctx["fetch_buf"][k] for k in sp.fetch_keys)
-            carries_out = tuple(env[k] for k in sp.carries_out)
-            return var_out, fetches, carries_out
+            self._interp(sp.items, sp, ctx, sp.frees)
+            var_env = ctx["var_env"]
+            fetches = [ctx["fetch_buf"][k] for k in sp.fetch_keys]
+            carries_out = [env[k] for k in sp.carries_out]
+            if sp.owned_writes or sp.don_var_ids:
+                _donate(sp, var_start, var_env, fetches, carries_out,
+                        tuple(feeds) + tuple(carries_in))
+            var_out = tuple(var_env[v] for v in sp.var_writes)
+            return var_out, tuple(fetches), tuple(carries_out)
 
-        return seg_fn
+        if self.capture is None:
+            return seg_fn
+        if not self._capturable(sp.items):
+            return self.capture.eager(seg_fn)
+        sel_slots, trip_slots = self._host_slots(sp.items)
+
+        def host(don, keep, feeds, sels, trips, carries):
+            return (tuple(int(sels[j]) for j in sel_slots),
+                    tuple(int(trips[j]) for j in trip_slots))
+
+        # arg 0 carries exactly the donation-eligible buffers (may be empty)
+        return self.capture.wrap(seg_fn, donate=(0,), host=host)
+
+    def _capturable(self, items) -> bool:
+        for uid in self.structure.uids_in(items):
+            if uid in self._dead or uid in self._alias:
+                continue
+            n = self._node(uid)
+            names = ([e.op_name for e in n.body.entries] if n.kind == "loop"
+                     else [n.op_name])
+            if not all(ops_mod.OPS[m].capturable for m in names):
+                return False
+        return True
+
+    def _host_slots(self, items) -> Tuple[List[int], List[int]]:
+        """The Case Select and Loop Cond slots a segment reads: part of its
+        graph key, since branches and trip counts are chosen on the host."""
+        sels, trips = set(), set()
+
+        def walk(its):
+            for item in its:
+                if isinstance(item, SwitchItem):
+                    sels.add(self.selector_slot[item.fork_uid])
+                    for b in item.branches:
+                        walk(b)
+                elif item.uid in self.trip_slot:
+                    trips.add(self.trip_slot[item.uid])
+
+        walk(items)
+        return sorted(sels), sorted(trips)
 
     # ------------------------------------------------------------------
     def _resolve(self, src, sp: SegProg, ctx, uid: int, pos: int):
@@ -388,12 +508,16 @@ class GraphProgram:
         raise ValueError(f"unresolvable src {src}")
 
     # ------------------------------------------------------------------
-    def _interp(self, items, sp: SegProg, ctx):
-        for item in items:
+    def _interp(self, items, sp: SegProg, ctx, frees=None):
+        env = ctx["env"]
+        for i, item in enumerate(items):
             if isinstance(item, NodeItem):
                 self._exec_node(self._node(item.uid), sp, ctx)
             else:
                 self._exec_switch(item, sp, ctx)
+            if frees is not None:
+                for k in frees[i]:
+                    env.pop(k, None)
 
     # ------------------------------------------------------------------
     def _exec_node(self, n: TGNode, sp: SegProg, ctx):
@@ -568,3 +692,45 @@ class GraphProgram:
             ctx["var_env"][vid] = outs[nf + k]
         for k, key in enumerate(exports):
             ctx["env"][key] = outs[nf + nv + k]
+
+
+def _shares(a, b) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _donate(sp: SegProg, var_start, var_env, fetches: list,
+            carries: list, inputs: tuple) -> None:
+    """Ownership epilogue of a segment (DESIGN.md §4.2).
+
+    * A donated variable's new value goes into its input buffer, so the
+      store keeps that buffer.  A fetch, carry or other write that is a
+      view of the buffer is cloned first: JAX has no views, and a fetch of
+      ``w[0]`` must not change when ``w`` is overwritten.
+    * A written value that a later segment will donate must be owned by
+      the store alone: one that shares storage with an input or another
+      output of this segment is cloned."""
+    for v in sp.don_var_ids:
+        dst, new = var_start[v], var_env[v]
+        if new is dst or new.shape != dst.shape or new.dtype != dst.dtype:
+            continue                    # unchanged, or rebound to new aval
+        if _shares(new, dst):
+            new = new.clone()
+        for outs in (fetches, carries):
+            for j, t in enumerate(outs):
+                if _shares(t, dst):
+                    outs[j] = t.clone()
+        for w in sp.var_writes:
+            if w != v and _shares(var_env[w], dst):
+                var_env[w] = var_env[w].clone()
+        dst.copy_(new)
+        var_env[v] = dst
+    for v in sp.owned_writes:
+        val = var_env[v]
+        if val is var_start.get(v) and v in sp.don_var_ids:
+            continue
+        others = (fetches + carries + list(inputs)
+                  + [t for w, t in var_start.items()]
+                  + [var_env[w] for w in sp.var_writes if w != v])
+        if any(isinstance(t, torch.Tensor) and _shares(val, t)
+               for t in others):
+            var_env[v] = val.clone()

@@ -50,6 +50,9 @@ from repro_torch.core.trace import (Aval, Ref, VarRef, as_tensor, torch_dtype,
 class OpDef:
     name: str
     impl: Callable                 # pure torch fn: (*tensors, **attrs) -> tensor | tuple
+    # False: the impl reads the device on the host or copies from pageable
+    # memory, so a segment holding it cannot be a CUDA graph (capture.py)
+    capturable: bool = True
 
 
 OPS: Dict[str, OpDef] = {}
@@ -64,9 +67,11 @@ class Const:
         return hash((type(self.value).__name__, self.value))
 
 
-def def_op(name: str, impl: Callable) -> Callable:
-    """Register ``impl`` and return the user-facing instrumented function."""
-    OPS[name] = OpDef(name, impl)
+def def_op(name: str, impl: Callable, capturable: bool = True) -> Callable:
+    """Register ``impl`` and return the user-facing instrumented function.
+    ``capturable=False`` declares that the impl cannot run inside a CUDA
+    graph capture; segments and chains holding it then run eagerly."""
+    OPS[name] = OpDef(name, impl, capturable)
 
     def op_fn(*tensor_args, **attrs):
         return _call_op(name, tensor_args, attrs)
@@ -176,7 +181,7 @@ def get_vjp_op_name(fwd_name: str) -> str:
                     grads[i] = g
             return tuple(grads) if len(grads) > 1 else grads[0]
 
-        OPS[name] = OpDef(name, vjp_impl)
+        OPS[name] = OpDef(name, vjp_impl, OPS[fwd_name].capturable)
     return name
 
 
@@ -375,8 +380,12 @@ def _idx_decode(enc):
 
 
 def _tensor_like(b, a) -> torch.Tensor:
-    return b if isinstance(b, torch.Tensor) else torch.as_tensor(
-        b, dtype=a.dtype, device=a.device)
+    if isinstance(b, torch.Tensor):
+        return b
+    if isinstance(b, (bool, int, float)):
+        # a fill on the device: no host-to-device copy, so capturable
+        return torch.full((), b, dtype=a.dtype, device=a.device)
+    return torch.as_tensor(b, dtype=a.dtype, device=a.device)
 
 
 def _both(fn):

@@ -16,39 +16,42 @@ _LEAF = ("*",)
 _NONE = ("none",)
 
 
+def _flatten(t, leaves: List[Any]) -> Tuple:
+    if t is None:
+        return _NONE
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_flatten(t[k], leaves) for k in keys))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__, len(t),
+                tuple(_flatten(x, leaves) for x in t))
+    leaves.append(t)
+    return _LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Tuple]:
-    """-> (leaves, treedef)."""
+    """-> (leaves, treedef).  (Module-level recursion: a recursive closure
+    is a reference cycle that would keep the leaves alive until the
+    cyclic collector runs.)"""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def go(t):
-        if t is None:
-            return _NONE
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(go(t[k]) for k in keys))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, len(t), tuple(go(x) for x in t))
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, go(tree)
+def _unflatten(d: Tuple, it) -> Any:
+    kind = d[0]
+    if kind == "*":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(d[1], d[2])}
+    kids = [_unflatten(c, it) for c in d[2]]
+    return tuple(kids) if kind == "tuple" else kids
 
 
 def tree_unflatten(treedef: Tuple, leaves) -> Any:
     it = iter(leaves)
-
-    def go(d):
-        kind = d[0]
-        if kind == "*":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: go(c) for k, c in zip(d[1], d[2])}
-        kids = [go(c) for c in d[2]]
-        return tuple(kids) if kind == "tuple" else kids
-
-    out = go(treedef)
+    out = _unflatten(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the treedef holds")
     return out

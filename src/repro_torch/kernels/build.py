@@ -15,6 +15,7 @@ Nothing here runs at import time: the CPU tests import every module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 LOGS: Dict[str, str] = {}           # name -> nvcc output of its last build
+_RECORDING = threading.local()      # .rec: this thread's launches, or None
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: adds one to ``wrapper.launches``
+    and to the calling thread's record while it has one open."""
+    wrapper.launches += 1
+    rec = getattr(_RECORDING, "rec", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yield {wrapper: launches} counted by this thread while the block
+    runs (a CUDA graph capture: other threads' launches are not in it)."""
+    prev = getattr(_RECORDING, "rec", None)
+    _RECORDING.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORDING.rec = prev
 
 
 def nvcc() -> str:

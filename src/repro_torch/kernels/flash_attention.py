@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_attention
 
 NAME = "flash_attention"
@@ -106,7 +107,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

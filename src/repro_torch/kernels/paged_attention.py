@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_paged_attention
 
 NAME = "paged_attention"
@@ -137,7 +138,7 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    count_launch(paged_attention)
     return out
 
 

@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_rmsnorm
 
 NAME = "rmsnorm"
@@ -111,7 +112,7 @@ def rmsnorm(x, g, *, eps: float = 1e-6):
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, g))
     _launch(x, g, out, rows, d, eps,
             launch_plan(d, x.element_size(), aligned))
-    rmsnorm.launches += 1
+    count_launch(rmsnorm)
     return out
 
 

@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_ssd
 
 NAME = "ssd_scan"
@@ -180,7 +181,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
                    torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return (y, h_final) if return_final else y
 
 

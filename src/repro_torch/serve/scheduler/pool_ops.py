@@ -42,11 +42,13 @@ Pytrees are flattened at the op boundary; a meta registry keeps the
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Tuple
 
 import torch
 
-from repro_torch.core.ops import def_op
+from repro_torch.core.capture import CaptureContext, jit_disabled
+from repro_torch.core.ops import OPS, _uniform01, def_op
 from repro_torch.core.pytree import (tree_flatten, tree_leaves, tree_map,
                                      tree_unflatten)
 from repro_torch.models import attention as A
@@ -165,12 +167,13 @@ def pool_meta(mid: int) -> PoolMeta:
 
 def _sample(logits, temperature: float, rng):
     """Greedy argmax (first maximum on ties), or — at temperature > 0 —
-    Gumbel-max sampling seeded from the key feed.  Seeding reads the key
-    on the host, one device sync per sampled step; greedy reads nothing."""
+    Gumbel-max sampling with noise from the op layer's counter hash of
+    the key feed (``core.ops._uniform01``): made where the key lies, with
+    no host read, so a step samples inside a CUDA graph; equal keys give
+    equal tokens on the CPU and on the card."""
     if temperature > 0.0 and rng is not None:
-        gen = torch.Generator(logits.device).manual_seed(
-            int(rng.reshape(-1)[0].item()))
-        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+        u = _uniform01(rng.reshape(-1), logits.numel()).reshape(
+            logits.shape)
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         tok = torch.argmax(logits.float() / temperature + gumbel, dim=-1)
     else:
@@ -305,3 +308,34 @@ def _slot_decode_kernel_impl(*leaves, **attrs):
 
 slot_prefill = def_op("serve.slot_prefill", _slot_prefill_impl)
 slot_decode = def_op("serve.slot_decode", _slot_decode_impl)
+
+
+# --------------------------------------------------------------------------
+# The ``use_terra=False`` baseline's step callables
+# --------------------------------------------------------------------------
+
+def _in_place(fn, lo: int, hi: int, attrs: dict, *args):
+    """``fn(*args)`` with its new pool leaves (outputs 1..) written into
+    the pool arguments ``args[lo:hi]``, which it returns in their place."""
+    outs = fn(*args, **attrs)
+    pool = args[lo:hi]
+    for dst, src in zip(pool, outs[1:]):
+        if src is not dst:
+            dst.copy_(src)
+    return (outs[0],) + tuple(pool)
+
+
+def baseline_steps(n_params: int, n_cache: int, attrs: dict, device):
+    """``serve.slot_decode`` and ``serve.slot_prefill`` called directly,
+    with the pool (cache leaves, pos, tokf) donated: written in place, as
+    the reference's ``donate_argnums`` lets XLA do.  On a CUDA card each
+    step shape is a CUDA graph of one CaptureContext (core/capture.py),
+    as the reference jits them -> (decode, prefill, context or None)."""
+    lo, hi = n_params, n_params + n_cache + 2
+    ctx = (CaptureContext(device) if device.type == "cuda"
+           and not jit_disabled() else None)
+    fns = []
+    for name in ("serve.slot_decode", "serve.slot_prefill"):
+        fn = functools.partial(_in_place, OPS[name].impl, lo, hi, attrs)
+        fns.append(fn if ctx is None else ctx.wrap(fn, donate=range(lo, hi)))
+    return fns[0], fns[1], ctx

@@ -7,11 +7,11 @@ lives as framework Variables threading GraphRunner-to-GraphRunner on
 device; the loop runs one step deep (dispatch N+1, then harvest N);
 admission prefills splice device buffers through fenced closures
 (varops).  ``page_size`` selects the paged arena (paged.py);
-``use_terra=False`` is the plain-PyTorch scheduling baseline (the same op
-bodies called directly).  ``device`` (default: the CUDA card) holds the
-params, the pool and every step.  ``checkpoint``/``restore`` and
-``enable_metrics`` arrive with the port's persistence and observability
-slices.  See DESIGN.md §11/§12/§14."""
+``use_terra=False`` is the plain-PyTorch scheduling baseline (op bodies
+called directly, pool donated, a CUDA graph per step shape on a card).
+``device`` (default: the CUDA card) holds the params, the pool and every
+step.  ``checkpoint``/``restore`` and ``enable_metrics`` arrive with the
+port's persistence and observability slices.  See DESIGN.md §11/§12/§14."""
 
 from __future__ import annotations
 
@@ -111,10 +111,8 @@ class ContinuousBatchingScheduler:
         else:
             self._cache_leaves = list(leaves0)
             self._pos, self._tokf = pos0, tokf0
-            # the baseline calls the op bodies directly, eagerly; pool
-            # state is not donated (in-place reuse is later work)
-            self._decode_fn = op_impl("serve.slot_decode")
-            self._prefill_fn = op_impl("serve.slot_prefill")
+            self._decode_fn, self._prefill_fn, self._capture = \
+                pool_ops.baseline_steps(self._np, self._nc, self._attrs, dev)
 
         self.pool = SlotPool(max_slots, self.layout, row_tokens=max_len)
         self.queue = ArrivalQueue(clock)
@@ -210,6 +208,8 @@ class ContinuousBatchingScheduler:
     def close(self) -> None:
         if self.use_terra:
             self._tf.close()
+        elif self._capture is not None:
+            self._capture.release()
 
     # ------------------------------------------------------------------
     # step execution
@@ -251,7 +251,7 @@ class ContinuousBatchingScheduler:
                 args.append(as_tensor(plan.bt, dev))
             if self._has_rng:
                 args.append(as_tensor(self._next_key(), dev))
-            outs = self._decode_fn(*args, **self._attrs)
+            outs = self._decode_fn(*args)
             tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
             self._cache_leaves = list(outs[1:-2])
         pairs = [(s, r) for s, r in self.pool.active_items() if plan.mask[s]]
@@ -279,7 +279,7 @@ class ContinuousBatchingScheduler:
             args += [self._pos, self._tokf] + frames
             if key is not None:
                 args.append(key)
-            outs = self._prefill_fn(*args, **self._attrs)
+            outs = self._prefill_fn(*args)
             tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
             self._cache_leaves = list(outs[1:-2])
             tm.step_done(self, "prefill", len(plan.requests), t0)

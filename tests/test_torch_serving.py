@@ -5,10 +5,8 @@ admission, the SSD scan in every prefill).
 
 Same params (the reference's, converted), same requests, float32 smoke
 llama and mamba2: greedy tokens must be identical and the scheduler and
-engine counters equal.  ``donated_bytes`` is left out of the comparison: the
-reference donates pool buffers to XLA, the port does not donate yet (its
-segments never write in place), so the port's stays 0 until buffer
-donation is ported.
+engine counters equal, ``donated_bytes`` included (the port donates under
+the reference's rules, ``core/graphgen._analyze_donation``).
 """
 
 import dataclasses
@@ -111,7 +109,7 @@ def test_port_paged_kernel_scheduler_matches_jax(llama, mix):
         {k: jst.get(k) for k in ENGINE_KEYS}
     assert tst["kernels_substituted"] >= 1
     assert tst["phase"] == "co-execution"
-    assert tst["donated_bytes"] == 0                # no donation yet (above)
+    assert tst["donated_bytes"] == jst["donated_bytes"]
     assert PA.paged_attention.launches == before    # CPU: plain version
 
 
