@@ -26,8 +26,15 @@ Phases, in order; any failure exits non-zero and prints no result:
               device time summed over the call's three kernels, split per
               kernel, with the scratch bytes, and with other head groups
               in turns (logged; the row: the default's median device
-              time).  The build log's registers and spills per kernel
-              (every rmsnorm and SSD kernel).
+              time).  Then paged decode at each family's shape
+              (deepseek-moe-16b 16/16 x 128, qwen2.5-14b 40/8 x 128,
+              mixtral-8x22b 48/8 x 128 with window 4096 and rows up to
+              6144 tokens, recurrentgemma-2b 10/1 x 256 with window
+              2048) and flash at D = 256 (10/1 heads, 512 and 4096
+              tokens, causal, window 2048), each a row of its own with
+              its time, bound, SDPA time and plain time.  The build
+              log's registers and spills per kernel (every rmsnorm and
+              SSD kernel, paged and flash at D 128 and 256).
 3. serving  — llama3-8b at its published width and depth (random bf16
               weights from a seed) served by the co-executed paged
               continuous-batching scheduler with the ``kernels`` pass: 12
@@ -89,10 +96,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               program (4 layers, 4 x 512) within phase 6's 1e-4; the
               trainer (2 layers of the 100m preset) within phase 10's
               PARITY_RTOL.  Each captured arm has every segment captured
-              and none compiled eager.  Then full width and depth, bf16,
-              both arms in turns (three each) in one call: llama3-8b
-              steady decode, mamba2 serving batches, scoring calls and
-              100m training steps, each with time per step, device time
+              and none compiled eager.  Then full width, bf16, both arms
+              in turns (three each) in one call: llama3-8b steady decode
+              and scoring calls at 8 of 32 layers, mamba2 serving
+              batches at 6 of 24, and 100m training steps at 5 of 10
+              (depths cut to keep the script's wall), each with time per step, device time
               and busy share, peak memory, graphs, replays, recaptures
               and bytes copied into and out of graphs per step; in the
               captured windows the paged, flash and rmsnorm counters
@@ -100,7 +108,28 @@ Phases, in order; any failure exits non-zero and prints no result:
               closed engines must have returned their memory.
               Every earlier phase runs captured as well, with its launch
               assertions unchanged (a replay adds its graph's launches).
-12. profile — only with ``--profile``: steady-state decode time per step,
+12. families — deepseek-moe-16b (28 layers, 64 routed top-6 +
+              2 shared experts) and recurrentgemma-2b (26 layers, RG-LRU
+              and local attention) at published width and depth, and
+              mixtral-8x22b at published width cut to 4 of 56 layers,
+              bf16 random weights from a seed, each served by the
+              co-executed paged scheduler with the kernels pass (phase
+              3's traffic; recurrentgemma 16 requests, prompts 64-1024 at
+              exact length): paged launches == attention layers x
+              compiled decode steps (counters zeroed just before, read
+              just after), every segment captured; then steady decode
+              (8 x 128 tokens, 32 new) captured against
+              ``disable_jit()`` in turns: step time, tokens/s, device
+              busy share, peak memory, graphs and replays.  qwen2.5-14b
+              (48 layers, 40/8 heads: the paged kernel at G = 5) is
+              served once the same way at published width and depth,
+              with its launches checked, and not timed.  Then at 4
+              layers (recurrentgemma 5: one super-block and its two
+              extra blocks), float32, TF32 off: greedy tokens equal
+              across ServingEngine co-executed, ServingEngine
+              ``use_terra=False``, the scheduler and ServingEngine on
+              the CPU; a batch-size change re-traces and keeps them.
+13. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -110,7 +139,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               requests (prompts 512-527, 64 new tokens; the SSD kernels'
               device time per batch); last, ten steps of the 100m
               trainer under the profiler (device time by kernel class
-              per step, busy share).
+              per step, busy share); each family's captured steady
+              decode (device time by class: matrix products, the paged
+              kernels, the rest; busy share).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -457,10 +488,11 @@ def paged_bound_ms(q, kp, bt, valid, bs, window=0) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt])
 
 
-def sdpa_dense(q, kp, vp, bt, valid):
+def sdpa_dense(q, kp, vp, bt, valid, window=0):
     """The library yardstick: scaled_dot_product_attention over K/V already
-    gathered into dense [B, Hkv, S, D] rows, with the valid-length mask.
-    Returns a zero-argument callable (gather done outside it)."""
+    gathered into dense [B, Hkv, S, D] rows, with the valid-length (and
+    window) mask.  Returns a zero-argument callable (gather done outside
+    it)."""
     import torch
     import torch.nn.functional as F
     B, _, Hq, D = q.shape
@@ -469,7 +501,10 @@ def sdpa_dense(q, kp, vp, bt, valid):
     v = vp[bt.long()].reshape(B, -1, Hkv, D).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()                   # [B, Hq, 1, D]
     pos = torch.arange(k.shape[2], device=q.device)
-    mask = (pos[None, :] < valid[:, None])[:, None, None, :]
+    ok = pos[None, :] < valid[:, None]
+    if window:
+        ok &= pos[None, :] >= valid[:, None] - window
+    mask = ok[:, None, None, :]
     try:
         F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
                                        enable_gqa=True)
@@ -743,6 +778,155 @@ def flash_kernel_row(bh, seq):
             f"{bound:.5f} ms ({by})")
         del qkv, kernel, lib
     release()
+    return row
+
+
+# the paged decode shapes of this slice's families (phase 2): 8 rows in
+# 16-token pages; mixtral's rows run past its 4096 window, recurrentgemma's
+# past its 2048 one
+PAGED_FAMILIES = {
+    # arch: (B, Hkv, G, D, bs, nbps, window, valid)
+    "deepseek-moe-16b": (8, 16, 1, 128, 16, 32, 0,
+                         [1, 17, 100, 255, 256, 300, 444, 512]),
+    "qwen2.5-14b": (8, 8, 5, 128, 16, 32, 0,
+                    [1, 17, 100, 255, 256, 300, 444, 512]),
+    "mixtral-8x22b": (8, 8, 6, 128, 16, 384, 4096,
+                      [1, 700, 2000, 4095, 4097, 5000, 6000, 6144]),
+    "recurrentgemma-2b": (8, 1, 10, 256, 16, 192, 2048,
+                          [1, 300, 1024, 2048, 2049, 2500, 3000, 3072]),
+}
+
+
+def family_paged_rows():
+    """paged_attention at each family's decode shape: against its plain
+    version in f32 and bf16, then timed in bf16 (rotating arena copies
+    together > the L2) against SDPA over gathered K/V in turns by device
+    time, beside the plain version's time and the bound."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import ref_paged_attention
+    rows = []
+    for arch, shape in PAGED_FAMILIES.items():
+        B, Hkv, G, D, bs, nbps, window, valid = shape
+        nblocks = sum(-(-v // bs) for v in valid) + 1
+        label = (f"paged_attention {arch} B={B} Hq={Hkv * G} Hkv={Hkv} "
+                 f"D={D} window={window} (max valid {max(valid)})")
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = paged_inputs(B, Hkv * G, Hkv, D, bs, nbps, nblocks, valid,
+                                dtype, seed=11)
+            out = PA.paged_attention(*args, window=window)
+            ref = ref_paged_attention(*args, window=window)
+            err, ok = close_err(out, ref, TOL[name])
+            ok = ok and not bool(torch.isnan(out.float()).any())
+            torch.cuda.synchronize()
+            errs[name] = err
+            log(f"{label} {name}: max_abs_err={err:.3e} (tol {TOL[name]}), "
+                f"group {PA.padded_group(G)}, splits x blocks "
+                f"{PA.split_plan(B, Hkv, nbps, bs)}")
+            check(ok, f"paged_attention disagrees at {arch}'s shape {name}:"
+                  f" err={err}")
+            del args, out, ref
+        q, kp, vp, bt, vl = paged_inputs(B, Hkv * G, Hkv, D, bs, nbps,
+                                         nblocks, valid, torch.bfloat16,
+                                         seed=7)
+        n_rot = min(8, max(2, -(-100 * 2**20 // (2 * kp.numel() * 2))))
+        rot = [(kp.clone(), vp.clone()) for _ in range(n_rot)]
+        kernel = rotating([
+            lambda k=k, v=v: PA.paged_attention(q, k, v, bt, vl,
+                                                window=window)
+            for k, v in rot])
+        lib = rotating([sdpa_dense(q, k, v, bt, vl, window)
+                        for k, v in rot])
+        got, ms, lib_ms = turns(kernel, lib, 48)
+        plain_ms = time_ms(rotating([
+            lambda k=k, v=v: ref_paged_attention(q, k, v, bt, vl,
+                                                 window=window)
+            for k, v in rot]), 20)
+        bound = paged_bound_ms(q, kp, bt, vl, bs, window)
+        _, split = device_split(kernel, 48)
+        log(f"{label} turns (kernel, sdpa over gathered K/V) ms: "
+            + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got)
+            + f"; device ms by kernel {json.dumps(split)}")
+        log(f"{label}: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.5f} ms ({ms / lib_ms:.2f}x), bound {bound:.5f} ms "
+            f"(bytes)")
+        rows.append({"name": f"paged_attention[{arch}]", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "paged_attention.cu",
+                     "replaces": "src/repro/kernels/paged_attention.py:75",
+                     "launches": None, "max_abs_err": errs["bfloat16"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": lib_ms})
+        del q, kp, vp, bt, vl, rot, kernel, lib
+        release()
+    return rows
+
+
+FLASH_D256 = (4, 10, 1, 256, 2048)      # B, H, Hkv, D, window (causal)
+# kernel rows whose shape no main path of this run launches, and why
+OFF_PATH = {"flash_attention[recurrentgemma-2b]":
+            "no main path of this run has flash at D = 256 (only the "
+            "op-level scoring program reaches flash, and it is llama's)"}
+
+
+def flash_d256_row():
+    """flash_attention at recurrentgemma-2b's heads (10/1 x 256, causal,
+    window 2048) at 512 and 4096 tokens: against its plain version in f32
+    and bf16, timed in bf16 against SDPA with the same mask in turns (the
+    row: 4096 tokens, where the window bites)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ref_attention
+    B, H, Hkv, D, window = FLASH_D256
+    row = None
+    for S in (512, 4096):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            q = seeded((B, H, S, D), dtype, 30)
+            k = seeded((B, Hkv, S, D), dtype, 31)
+            v = seeded((B, Hkv, S, D), dtype, 32)
+            out = kops.flash_attention(q, k, v, causal=True, window=window)
+            ref = ref_attention(q, k, v, causal=True, window=window)
+            err, ok = close_err(out, ref, TOL[name])
+            torch.cuda.synchronize()
+            errs[name] = err
+            log(f"flash_attention D=256 [{B},{H}/{Hkv},{S},{D}] causal "
+                f"window {window} {name}: max_abs_err={err:.3e} (tol "
+                f"{TOL[name]})")
+            check(ok, f"flash_attention disagrees at D=256 S={S} {name}: "
+                  f"err={err}")
+            del q, k, v, out, ref
+        pos = torch.arange(S, device="cuda")
+        mask = ((pos[:, None] >= pos[None, :])
+                & (pos[None, :] > pos[:, None] - window))
+        qkv = [[seeded((B, H if j == 0 else Hkv, S, D), torch.bfloat16,
+                       40 + 3 * i + j) for j in range(3)] for i in range(4)]
+        kernel = rotating([lambda t=t: kops.flash_attention(
+            *t, causal=True, window=window) for t in qkv])
+        lib = rotating([lambda t=t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, enable_gqa=True) for t in qkv])
+        got, ms, lib_ms = turns(kernel, lib, 10)
+        plain_ms = time_ms(rotating([lambda t=t: ref_attention(
+            *t, causal=True, window=window) for t in qkv]), 3)
+        bound, by = attn_bound_ms(qkv[0][0], qkv[0][1], True, window)
+        log(f"flash_attention bf16 D=256 [{B},{H}/{Hkv},{S},{D}] turns "
+            f"(kernel, sdpa) ms: "
+            + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in got))
+        log(f"flash_attention bf16 D=256 S={S}: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.5f} ms ({ms / lib_ms:.2f}x),"
+            f" bound {bound:.5f} ms ({by})")
+        row = {"name": "flash_attention[recurrentgemma-2b]", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:26",
+               "launches": None, "max_abs_err": errs["bfloat16"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": lib_ms}
+        del qkv, kernel, lib, mask
+        release()
     return row
 
 
@@ -2090,12 +2274,21 @@ def capture_turns(label, unit, arms, kernels=()):
     return out
 
 
+# the timing arms' depth at full width: cut from 32 (llama: decode and
+# scoring), 24 (mamba2) and 10 (the 100m trainer) layers, to keep the
+# script's wall near 1.5x what it was before the families phase joined it
+# (each profiler window over an eager arm costs time in proportion to its
+# launches)
+CAPTURE_TIMING_LAYERS = {"llama3-8b": 8, "mamba2-130m": 6, "train-100m": 5}
+
+
 def capture_timing():
-    """Full width and depth, bf16, both arms in one call: llama3-8b steady
-    decode (the profile phase's batch: 8 requests of 128 tokens, 48
-    new), mamba2-130m serving (16 requests of 512-527 tokens, 64 new),
-    the scoring program (4 x 512 tokens, 5 calls a turn) and the 100m
-    trainer (10 steps a turn, each loss fetched)."""
+    """Full width at CAPTURE_TIMING_LAYERS depth, bf16, both arms in one
+    call: llama3-8b steady decode (the profile phase's batch: 8 requests
+    of 128 tokens, 48 new), mamba2-130m serving (16 requests of 512-527
+    tokens, 64 new), the scoring program (llama3-8b, 4 x 512 tokens, 5
+    calls a turn) and the 100m trainer (10 steps a turn, each loss
+    fetched)."""
     import torch
     import repro_torch.core as core
     from repro_torch.configs import get_config
@@ -2105,12 +2298,13 @@ def capture_timing():
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import Trainer
 
-    results = {}
+    results, t0 = {}, time.perf_counter()
     for arch, kw, shape in (
             ("llama3-8b", dict(optimize=KERNELS, **SERVE_KW),
              (8, 128, 128, 48)),
             ("mamba2-130m", MAMBA_SERVE_KW, (16, 512, 527, 64))):
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=CAPTURE_TIMING_LAYERS[arch])
         params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
         arms, engines = {}, {}
         for name in ("captured", "eager"):
@@ -2132,17 +2326,20 @@ def capture_timing():
             run()                           # warm-up and capture
             engines[name] = sched
             arms[name] = (run, sched._tf.engine.capture)
+        log(f"capture timing {arch}: warm at {time.perf_counter() - t0:.1f} s")
         results[arch] = capture_turns(
             arch, "decode_step" if arch == "llama3-8b" else "batch", arms,
             [("paged_attention", ("paged_split_kernel",), cfg.n_layers)]
             if arch == "llama3-8b" else ())
-        check_captured(f"{arch} full depth", engines["captured"]._tf.engine)
+        check_captured(f"{arch} at {cfg.n_layers} layers",
+                       engines["captured"]._tf.engine)
         for sched in engines.values():
             sched.close()
         del params, arms, engines, sched, run
         release()
 
-    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=CAPTURE_TIMING_LAYERS["llama3-8b"])
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     arms, steps = {}, {}
     for name in ("captured", "eager"):
@@ -2163,18 +2360,21 @@ def capture_timing():
 
         steps[name] = step
         arms[name] = (run, step.engine.capture)
+    log(f"capture timing scoring: warm at {time.perf_counter() - t0:.1f} s")
     results["scoring"] = capture_turns(
         "scoring", "call", arms,
         [("flash_attention", ("flash_bf16_kernel",), cfg.n_layers),
          ("rmsnorm", ("rmsnorm_reg_kernel", "rmsnorm_kernel"),
           2 * cfg.n_layers + 1)])
-    check_captured("scoring full depth", steps["captured"].engine)
+    check_captured(f"scoring at {cfg.n_layers} layers",
+                   steps["captured"].engine)
     for step in steps.values():
         step.close()
     del params, arms, steps, step, run
     release()
 
-    cfg = ModelConfig(**TRAIN_100M["cfg"])
+    cfg = dataclasses.replace(ModelConfig(**TRAIN_100M["cfg"]),
+                              n_layers=CAPTURE_TIMING_LAYERS["train-100m"])
     arms, trainers = {}, {}
     for name in ("captured", "eager"):
         eager = name == "eager"
@@ -2192,6 +2392,7 @@ def capture_timing():
 
         trainers[name] = tr
         arms[name] = (run, tr._iteration.engine.capture)
+    log(f"capture timing train: warm at {time.perf_counter() - t0:.1f} s")
     results["train-100m"] = capture_turns("train 100m", "step", arms)
     check_captured("train 100m", trainers["captured"]._iteration.engine)
     for tr in trainers.values():
@@ -2206,8 +2407,9 @@ def phase_capture():
     release()
     base = torch.cuda.memory_allocated() / 2**30
     log("capture: captured segments against disable_jit(); equality at "
-        f"{CAPTURE_EQ_LAYERS} layers in float32, then timing at full depth "
-        f"({base:.3f} GiB allocated before)")
+        f"{CAPTURE_EQ_LAYERS} layers in float32, then timing at "
+        f"{json.dumps(CAPTURE_TIMING_LAYERS)} layers ({base:.3f} GiB "
+        f"allocated before)")
     capture_equality()
     torch.backends.cuda.matmul.allow_tf32 = True
     results = capture_timing()
@@ -2227,6 +2429,285 @@ def phase_capture():
 
 
 # --------------------------------------------------------------------------
+# phase 12: the MoE and RG-LRU families, served, and lock-step equality
+# --------------------------------------------------------------------------
+
+# (arch, layers kept (None: the published depth), scheduler settings,
+# traffic: requests, prompt lengths, new tokens)
+FAMILIES = (
+    ("deepseek-moe-16b", None, SERVE_KW, (12, 16, 256, 32, 64)),
+    # prompts admitted at exact length (recurrent state): up to 1024 tokens
+    ("recurrentgemma-2b", None, dict(max_slots=8, max_len=1152,
+                                     page_size=16), (16, 64, 1024, 32, 64)),
+    # 56 layers would be 141 B params (282 GB in bf16): cut to 4
+    ("mixtral-8x22b", 4, SERVE_KW, (12, 16, 256, 32, 64)),
+)
+# served only (no steady-decode turns, no equality): the paged kernel at
+# G = 5 on a main path
+SERVED_ONLY = (("qwen2.5-14b", None, SERVE_KW, (12, 16, 256, 32, 64)),)
+FAMILY_EQ_LAYERS = {"deepseek-moe-16b": 4, "mixtral-8x22b": 4,
+                    # one super-block (rglru, rglru, attn_local) and the
+                    # two extra rglru blocks: the least depth with attention
+                    "recurrentgemma-2b": 5}
+
+
+def gib_allocated() -> float:
+    import torch
+    return round(torch.cuda.memory_allocated() / 2**30, 3)
+
+
+def attn_layers(cfg) -> int:
+    """Layers that read the paged cache (one paged launch each a step)."""
+    from repro_torch.serve.scheduler.pool_ops import PAD_SAFE_KINDS
+    return (cfg.n_pattern_blocks * sum(k in PAD_SAFE_KINDS
+                                       for k in cfg.block_pattern)
+            + sum(k in PAD_SAFE_KINDS for k in cfg.extra_blocks))
+
+
+def family_config(arch, layers, **kw):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def serve_family(arch, layers, serve_kw, traffic, kernel_rows, profile_dir,
+                 steady=True):
+    """One family at published width, bf16 random weights: served by the
+    co-executed paged scheduler with the kernels pass (launch counters
+    zeroed just before, read just after: the paged kernel runs once per
+    attention layer per compiled decode step), every segment captured;
+    then (``steady``) steady decode captured against disable_jit() in
+    turns."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = family_config(arch, layers)
+    release()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    n_attn = attn_layers(cfg)
+    log(f"families {arch}: {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 1e9:.1f} GB bf16), {cfg.n_layers} layers "
+        f"({n_attn} with attention), init {time.perf_counter() - t0:.1f} s,"
+        f" {gib_allocated()} GiB allocated")
+    sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                        **serve_kw)
+    n, lo, hi, new_lo, new_hi = traffic
+    reqs = make_requests(cfg, n, seed=0, prompt_lo=lo, prompt_hi=hi,
+                         new_lo=new_lo, new_hi=new_hi)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = sched.stats
+    for i, r in enumerate(reqs):
+        check(r.out_tokens is not None
+              and len(r.out_tokens) == r.max_new_tokens,
+              f"{arch}: request {i} got {len(r.out_tokens or [])} of "
+              f"{r.max_new_tokens} tokens")
+    check(st["phase"] == "co-execution", f"{arch}: phase {st['phase']}")
+    check(st["kernels_substituted"] >= 1,
+          f"{arch}: the kernels pass substituted nothing")
+    compiled = st["iterations"] - st["traced_iterations"]
+    launches = counts["paged_attention"]
+    check(launches == compiled * n_attn and launches > 0,
+          f"{arch}: paged_attention launches {launches} != {compiled} "
+          f"compiled decode steps x {n_attn} attention layers")
+    check_captured(f"{arch} serving", sched._tf.engine)
+    gen = st["generated_tokens"]
+    log(f"families {arch} serving: {len(reqs)} requests, {gen} tokens in "
+        f"{wall:.2f} s = {gen / wall:.1f} tokens/s (includes tracing and "
+        f"warm-up), decode steps {st['decode_steps']}, prefill steps "
+        f"{st['prefill_steps']}, paged launches {launches} = {compiled} "
+        f"compiled steps x {n_attn}; launches {json.dumps(counts)}")
+    row = next(r for r in kernel_rows
+               if r["name"] == f"paged_attention[{arch}]")
+    row["launches"] = launches
+    log(f"families {arch}: {gib_allocated()} GiB allocated after serving")
+    if not steady:
+        sched.close()
+        del params, sched
+        release()
+        return None
+
+    # steady decode: captured (this engine) against disable_jit() in turns
+    with arm_context(True):
+        eager = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                            **serve_kw)
+    log(f"families {arch}: {gib_allocated()} GiB allocated with both "
+        f"schedulers")
+    arms = {}
+    for name, sc in (("captured", sched), ("eager", eager)):
+        def run(sc=sc, jit_off=name == "eager", seed=[300]):
+            seed[0] += 1
+            batch = make_requests(cfg, 8, seed[0], 128, 128, 32, 32)
+            st0 = sc.stats["decode_steps"]
+            with arm_context(jit_off):
+                sc.serve(batch)
+            return sc.stats["decode_steps"] - st0
+        if name == "eager":
+            run()                           # tracing, steady entry
+        arms[name] = (run, sc._tf.engine.capture)
+    out = capture_turns(arch, "decode_step", arms,
+                        [("paged_attention", ("paged_split_kernel",),
+                          n_attn)])
+    for name, (run, _) in arms.items():
+        out[name]["tokens_per_s"] = round(
+            8e3 / out[name]["ms_per_decode_step"], 1)
+    check_captured(f"{arch} steady decode", sched._tf.engine)
+    check_eager(f"{arch} steady decode", eager._tf.engine)
+    if profile_dir is not None:
+        profile_family_decode(arch, arms["captured"][0], n_attn,
+                              profile_dir)
+    sched.close()
+    eager.close()
+    del params, sched, eager, arms, run, sc
+    release()
+    return out
+
+
+def profile_family_decode(arch, run, n_attn, out_dir):
+    """One profiler window of captured steady decode (a batch: its
+    prefill, then its decode steps): device time per decode step by
+    kernel class (matrix products — cuBLAS's nvjet/gemm kernels, the
+    expert products first among them —, the paged kernels, device-to-
+    device copies, the rest) and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = {"products": 0.0, "paged": 0.0, "copies": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us <= 0:
+            continue
+        key = e.key.lower()
+        if "paged_" in key:
+            classes["paged"] += us
+        elif any(x in key for x in ("nvjet", "gemm", "xmma", "cutlass",
+                                    "gemv")):
+            classes["products"] += us
+        elif "memcpy" in key:
+            classes["copies"] += us
+        else:
+            classes["rest"] += us
+    busy = sum(classes.values())
+    per = {k: round(v / steps / 1e3, 4) for k, v in classes.items()}
+    path = os.path.join(out_dir, f"profile_{arch}.txt")
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
+    log(f"profile {arch} steady decode: {steps} steps in {wall:.3f} s, "
+        f"device ms per step by class {json.dumps(per)}, busy share "
+        f"{busy / 1e6 / wall:.4f} ({n_attn} paged launches a step; table "
+        f"{path})")
+
+
+def family_equality(arch):
+    """Full width at FAMILY_EQ_LAYERS depth, float32, TF32 off: greedy
+    tokens of four same-length requests equal across ServingEngine
+    co-executed (captured), ServingEngine use_terra=False (captured), the
+    co-executed paged scheduler with the kernels pass, and ServingEngine
+    on the CPU; then the co-executed engine serves two rows of the same
+    requests (a batch-size change: graph_versions bumps, tokens kept)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    release()
+    cfg = family_config(arch, FAMILY_EQ_LAYERS[arch], dtype="float32",
+                        param_dtype="float32")
+    # capacity factor E: no token ever drops (capacity = every token), so
+    # batching does not change a row's experts (smoke_config's choice)
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts or 1))
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab, 24).astype(np.int32)
+               for _ in range(4)]
+    news = [12, 8, 12, 10]
+
+    def reqs():
+        return [Request(prompt=p, max_new_tokens=m, arrival_time=0.0)
+                for p, m in zip(prompts, news)]
+
+    def lockstep(device, use_terra, params):
+        eng = ServingEngine(cfg, params, max_len=64, use_terra=use_terra,
+                            device=device)
+        out = eng.run_batch(reqs())
+        if use_terra and device is None:
+            check_captured(f"{arch} lock-step", eng.terra.engine)
+            versions = eng.terra.stats["graph_versions"]
+            half = eng.run_batch(reqs()[:2])
+            check(eng.terra.stats["graph_versions"] > versions,
+                  f"{arch}: a batch-size change did not re-trace")
+            check([r.out_tokens for r in half]
+                  == [r.out_tokens for r in out[:2]],
+                  f"{arch}: tokens changed with the batch size")
+        eng.close()
+        return [r.out_tokens for r in out]
+
+    arms = {"lock-step": lockstep(None, True, params),
+            "use_terra=False": lockstep(None, False, params)}
+    sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                        max_slots=4, max_len=64,
+                                        page_size=16)
+    served = sched.serve(reqs())
+    sched.close()
+    arms["scheduler"] = [r.out_tokens for r in served]
+    arms["cpu"] = lockstep("cpu", True,
+                           tree_map(lambda t: t.cpu(), params))
+    base = arms["lock-step"]
+    for name, toks in arms.items():
+        check(toks == base, f"{arch}: greedy tokens differ, lock-step "
+              f"{base} vs {name} {toks}")
+    log(f"families {arch} equality at {cfg.n_layers} layers (f32): "
+        f"lock-step == use_terra=False == scheduler == CPU on "
+        f"{len(base)} requests, {sum(map(len, base))} tokens; batch "
+        f"4 -> 2 re-traced with tokens kept")
+    del params
+    release()
+
+
+def phase_families(kernel_rows, profile_dir=None):
+    import torch
+    release()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    results, walls = {}, {}
+    for arch, layers, serve_kw, traffic in FAMILIES:
+        t0 = time.perf_counter()
+        results[arch] = serve_family(arch, layers, serve_kw, traffic,
+                                     kernel_rows, profile_dir)
+        walls[arch] = round(time.perf_counter() - t0, 1)
+    for arch, layers, serve_kw, traffic in SERVED_ONLY:
+        t0 = time.perf_counter()
+        serve_family(arch, layers, serve_kw, traffic, kernel_rows,
+                     profile_dir, steady=False)
+        walls[arch] = round(time.perf_counter() - t0, 1)
+    log("families table: " + json.dumps(results))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, _, _, _ in FAMILIES:
+        t0 = time.perf_counter()
+        family_equality(arch)
+        walls[arch + " equality"] = round(time.perf_counter() - t0, 1)
+    log(f"families walls (s): {json.dumps(walls)}")
+    release()
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2235,6 +2716,7 @@ def main() -> int:
                          "path) and profile it, the scoring programs and "
                          "mamba2 serving into chiprun_out/")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -2264,34 +2746,66 @@ def main() -> int:
                 f"most {max((e[2] for e in entries), default=0)} bytes "
                 f"spill stores")
             for kname, regs, spill in entries:
-                if name in ("rmsnorm", "ssd_scan") or "128" in kname \
+                # every rmsnorm and SSD kernel; paged and flash at the
+                # path widths (D 128 and 256) and the registry's groups
+                if name in ("rmsnorm", "ssd_scan") \
+                        or re.search(r"[<,](128|256)[,>]", kname) \
                         or not re.search(r"[<,]\d", kname):
                     log(f"    {kname}: {regs} registers, {spill} bytes "
                         f"spill stores")
         smi = nvidia_smi_line()
         log(f"card: {smi}")
-        rows = [phase_kernels(),
-                rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
-                flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ),
-                ssd_kernel_row()]
-        phase_serving(rows)
-        phase_tokens()
-        phase_coexec_kernels(rows, os.path.join(HERE, "chiprun_out")
-                             if args.profile else None)
-        phase_coexec_equality()
-        phase_mamba2_serving(rows)
-        phase_mamba2_equality()
-        phase_programs()
-        phase_train()
-        phase_capture()
+        rows = []
+
+        def kernel_rows():
+            rows.extend([phase_kernels(),
+                         rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
+                         flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ),
+                         ssd_kernel_row()])
+            rows.extend(family_paged_rows() + [flash_d256_row()])
+
+        profile_dir = (os.path.join(HERE, "chiprun_out") if args.profile
+                       else None)
+        phases = [
+            ("kernels", kernel_rows),
+            ("serving", lambda: phase_serving(rows)),
+            ("tokens", phase_tokens),
+            ("coexec-kernels", lambda: phase_coexec_kernels(rows,
+                                                            profile_dir)),
+            ("coexec-equality", phase_coexec_equality),
+            ("mamba2-serving", lambda: phase_mamba2_serving(rows)),
+            ("mamba2-equality", phase_mamba2_equality),
+            ("programs", phase_programs),
+            ("train", phase_train),
+            ("capture", phase_capture),
+            ("families", lambda: phase_families(rows, profile_dir)),
+        ]
         if args.profile:
-            phase_profile(os.path.join(HERE, "chiprun_out"))
-            phase_mamba2_profile(os.path.join(HERE, "chiprun_out"))
-            phase_train_profile(os.path.join(HERE, "chiprun_out"))
+            phases += [("profile", lambda: phase_profile(profile_dir)),
+                       ("mamba2-profile",
+                        lambda: phase_mamba2_profile(profile_dir)),
+                       ("train-profile",
+                        lambda: phase_train_profile(profile_dir))]
+        walls = {}
+        for name, run in phases:
+            t0 = time.perf_counter()
+            run()
+            walls[name] = round(time.perf_counter() - t0, 1)
+            log(f"phase {name}: {walls[name]} s")
+        log(f"phase walls: {json.dumps(walls)}")
+        # a row's launches are its own shape's on a main path of this
+        # run, zeroed just before it; a row in OFF_PATH says 0 and why
+        for row in rows:
+            if row["launches"] is None and row["name"] in OFF_PATH:
+                row["launches"] = 0
+                log(f"{row['name']}: 0 launches, {OFF_PATH[row['name']]}")
+        check(all(r["launches"] for r in rows if r["name"] not in OFF_PATH),
+              "a kernel row has no launches on its main path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
+    log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

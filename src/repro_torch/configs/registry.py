@@ -1,6 +1,9 @@
-"""Architecture registry + reduced smoke-test variants (the port carries
-llama3-8b and mamba2-130m; further architectures arrive with the model
-kinds they need).
+"""Architecture registry + reduced smoke-test variants.
+
+The port carries the eight decoder architectures of the reference's
+registry; whisper-small and llama-3.2-vision-90b (cross-attention and the
+encoder) arrive with the port's cross-attention slice, and ``get_config``
+says so when asked for them.
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``smoke_config(arch_id)`` returns a reduced config of the same family
@@ -12,16 +15,35 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import llama3_8b, mamba2_130m
+from repro_torch.configs import (codeqwen15_7b, deepseek_moe_16b,
+                                 granite3_2b, llama3_8b, mamba2_130m,
+                                 mixtral_8x22b, qwen25_14b,
+                                 recurrentgemma_2b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {
     "llama3-8b": llama3_8b.CONFIG,
+    "codeqwen1.5-7b": codeqwen15_7b.CONFIG,
+    "qwen2.5-14b": qwen25_14b.CONFIG,
+    "granite-3-2b": granite3_2b.CONFIG,
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "deepseek-moe-16b": deepseek_moe_16b.CONFIG,
     "mamba2-130m": mamba2_130m.CONFIG,
+    "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
 }
+
+# archs with a sub-quadratic long-context path: long_500k runs for these
+LONG_CONTEXT_ARCHS = {"mixtral-8x22b", "mamba2-130m", "recurrentgemma-2b"}
+
+# the reference's archs that need cross-attention or an encoder
+LATER_ARCHS = ("llama-3.2-vision-90b", "whisper-small")
 
 
 def get_config(arch: str) -> ModelConfig:
+    if arch in LATER_ARCHS:
+        raise NotImplementedError(
+            f"{arch} needs cross-attention or an encoder, which arrive with "
+            f"the port's cross-attention slice (ROADMAP.md Queue 1)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     cfg = ARCHS[arch]

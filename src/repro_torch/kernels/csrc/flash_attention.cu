@@ -10,7 +10,8 @@
 // in q's dtype.  A row that no key can reach (window > 0 and qpos >= Skv +
 // window - 1) gets the plain version's answer, the mean of v over all
 // keys, so its tile walks every KV tile; otherwise tiles wholly past the
-// diagonal or wholly before the window are skipped.  D in {16, 32, 64, 128}.
+// diagonal or wholly before the window are skipped.  D in {16, 32, 64,
+// 128, 256}.
 //
 // Bound.  On the scoring path kernel.attention hands over q/k/v
 // [128, 1, 512, 128] bf16 causal (4 sequences x 32 heads, 512 tokens):
@@ -37,7 +38,12 @@
 // shared memory transposed (MN-major); O accumulates in f32 registers and
 // leaves through shared memory as 16-byte stores.  Head dims below 64 are
 // zero-padded to one 64-wide column block in shared memory.  160
-// registers at D = 128, no spills.  Next (ROADMAP Queue 2): TMA loads from a
+// registers at D = 128, no spills.  D = 256 (recurrentgemma-2b's heads)
+// is the same kernel with the O accumulator 64 x 256 (128 f32 registers
+// a thread): P.V is two m64n128 products a k-step, one per 128-column
+// half of V, sharing the softmax statistics; the Q, K and V tiles take
+// 97 KB, so one CTA an SM (launch bounds 128 x 1): 208 registers, no
+// spills.  Next (ROADMAP Queue 2): TMA loads from a
 // producer warp, and two consumer warpgroups taking turns, so that one's
 // softmax hides behind the other's products.
 //
@@ -315,14 +321,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 128 f32) += A (64 x 16, registers) . B (16 x 128, smem desc, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+// d[OFF .. OFF + 16) (64 x 128 f32) += A (64 x 16, registers) . B (16 x
+// 128, smem desc, MN-major)
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N][4],
                                             const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 16 <= N, "accumulator columns");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]), "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]), "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]), "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]), "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]), "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]), "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]), "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3]), "+f"(d[OFF + 8][0]), "+f"(d[OFF + 8][1]), "+f"(d[OFF + 8][2]), "+f"(d[OFF + 8][3]), "+f"(d[OFF + 9][0]), "+f"(d[OFF + 9][1]), "+f"(d[OFF + 9][2]), "+f"(d[OFF + 9][3]), "+f"(d[OFF + 10][0]), "+f"(d[OFF + 10][1]), "+f"(d[OFF + 10][2]), "+f"(d[OFF + 10][3]), "+f"(d[OFF + 11][0]), "+f"(d[OFF + 11][1]), "+f"(d[OFF + 11][2]), "+f"(d[OFF + 11][3]), "+f"(d[OFF + 12][0]), "+f"(d[OFF + 12][1]), "+f"(d[OFF + 12][2]), "+f"(d[OFF + 12][3]), "+f"(d[OFF + 13][0]), "+f"(d[OFF + 13][1]), "+f"(d[OFF + 13][2]), "+f"(d[OFF + 13][3]), "+f"(d[OFF + 14][0]), "+f"(d[OFF + 14][1]), "+f"(d[OFF + 14][2]), "+f"(d[OFF + 14][3]), "+f"(d[OFF + 15][0]), "+f"(d[OFF + 15][1]), "+f"(d[OFF + 15][2]), "+f"(d[OFF + 15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -364,7 +373,7 @@ constexpr size_t wg_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(128, 3)
+__global__ void __launch_bounds__(128, D == 256 ? 1 : 3)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ out, int H,
                   int Hkv, int Sq, int Skv, int causal, int window,
@@ -512,8 +521,12 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = sw128_desc(sV + kk * 16 * 64, 64 * 128, 1024);
-      if constexpr (DP == 128) {
-        wgmma_rs_n128(o, pa[kk], dv);
+      if constexpr (DP == 256) {
+        wgmma_rs_n128<0>(o, pa[kk], dv);
+        wgmma_rs_n128<16>(o, pa[kk],
+                          sw128_desc(sV + 2 * 4096 + kk * 16 * 64, 64 * 128, 1024));
+      } else if constexpr (DP == 128) {
+        wgmma_rs_n128<0>(o, pa[kk], dv);
       } else {
         wgmma_rs_n64(o, pa[kk], dv);
       }
@@ -606,6 +619,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 32: return (int)launch_d<32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
     case 64: return (int)launch_d<64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
     case 128: return (int)launch_d<128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
+    case 256: return (int)launch_d<256>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

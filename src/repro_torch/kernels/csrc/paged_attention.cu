@@ -9,7 +9,14 @@
 // are masked (-1e30 inside a visited block, as the reference does); blocks
 // that hold no such position are never read.  Accumulation is f32; the
 // output is written in q's dtype.  Rows must have valid[b] >= 1 (a row
-// with none gets zeros).
+// with none gets zeros).  D in {16, 32, 64, 128, 256}; any group size
+// G = Hq/Hkv up to 16: G in {1, 2, 4, 5, 6, 8, 10} has its own
+// instantiation, with G a compile-time constant (the registry's groups
+// are 1, 4, 5, 6, 8 and 10), and any other G runs in a padded
+// instantiation of 4, 8 or 16 query rows, its extra rows zero and never
+// written (padded_group; kernels/paged_attention.py mirrors it).  Padded
+// in place of exact, G 5, 6 and 10 ran 6 %, 17 % and 41 % slower at the
+// families' shapes (PERF.md section 6, tools/paged_timers.py --arch).
 //
 // Bound.  Decode does a few FLOPs per K/V byte, far below the card's ~295
 // operations per byte, so it is bound by the bytes of the valid K/V:
@@ -33,7 +40,11 @@
 // by shuffles; the softmax statistics (max, sum) per query head by warp
 // reductions; P.V with each thread owning one 16-byte column chunk of a
 // subset of tokens, reduced by shuffles and across the 4 warps in shared
-// memory.  A split wholly past valid[b] or before the window exits at once
+// memory.  At D = 256 a bf16 head row is one 16-byte chunk per lane of a
+// warp and an f32 row two (the lane's chunks sit 32 chunks apart, so a
+// warp's loads stay contiguous); q and the P.V accumulators stay in
+// registers, G * 8 floats each, which the two phases of the kernel reuse.
+// A split wholly past valid[b] or before the window exits at once
 // and writes an empty partial (m = -inf, l = 0).  A second kernel merges a
 // row's partials in f32: M = max m_s, w_s = exp(m_s - M) (0 for an empty
 // split, never exp(-inf - -inf)), O = sum w_s acc_s / sum w_s l_s.  With
@@ -117,25 +128,46 @@ size_t split_smem_bytes(int D, int G, int bs, int bps) {
          + sizeof(int) * (size_t)bps;
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                   const T* __restrict__ vp, const int32_t* __restrict__ bt,
-                   const int32_t* __restrict__ valid, T* __restrict__ out,
-                   float* __restrict__ part, int Hkv, int bs, int nbps,
-                   int bps, int window, float scale) {
+// G with an instantiation of its own, where G is a compile-time constant
+__host__ __device__ constexpr bool exact_group(int G) {
+  return G == 1 || G == 2 || G == 4 || G == 5 || G == 6 || G == 8 ||
+         G == 10;
+}
+// The instantiated group that runs G query heads a KV head: G itself
+// where it has an instantiation, else the padded one of 4, 8 or 16 rows;
+// 0 past 16.
+__host__ __device__ constexpr int padded_group(int G) {
+  return exact_group(G) ? G : G <= 4 ? 4 : G <= 8 ? 8 : G <= 16 ? 16 : 0;
+}
+
+// The split kernels' body.  GP: the instantiated group (padded_group(G)).
+// kExact: GP is the real group, a compile-time constant; otherwise g_real
+// query heads a KV head, and rows g >= g_real compute on a zero q and are
+// never written.  The partials are laid out by the real group, as the
+// combine kernel reads them.
+template <typename T, int D, int GP, bool kExact>
+__device__ __forceinline__ void
+paged_split(const T* __restrict__ q, const T* __restrict__ kp,
+            const T* __restrict__ vp, const int32_t* __restrict__ bt,
+            const int32_t* __restrict__ valid, T* __restrict__ out,
+            float* __restrict__ part, int Hkv, int g_real, int bs, int nbps,
+            int bps, int window, float scale) {
+  const int G = kExact ? GP : g_real;
   constexpr int kVec = 16 / sizeof(T);      // values per 16-byte chunk
-  constexpr int kL = D / kVec;              // lanes per token row
+  constexpr int kCh = D / kVec;             // 16-byte chunks per token row
+  constexpr int kL = kCh < 32 ? kCh : 32;   // lanes per token row
+  constexpr int kC = kCh / kL;              // chunks per lane
+  constexpr int kV = kC * kVec;             // values per lane
   constexpr int kTpw = 32 / kL;             // tokens per warp step
-  static_assert(kL >= 1 && kL <= 32 && 32 % kL == 0, "head row vs warp");
+  static_assert(kL >= 1 && 32 % kL == 0 && kCh == kC * kL, "head row vs warp");
   const int ntok_max = bps * bs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);           // [ntok_max][D]
   T* Vs = Ks + (size_t)ntok_max * D;                // [ntok_max][D]
-  float* sc = reinterpret_cast<float*>(Vs + (size_t)ntok_max * D);  // [G][ntok_max]
-  float* red = sc + G * ntok_max;                   // [kWarps][G][D]
-  int* blk = reinterpret_cast<int*>(red + kWarps * G * D);  // [bps]
-  __shared__ float m_s[G], l_s[G];
+  float* sc = reinterpret_cast<float*>(Vs + (size_t)ntok_max * D);  // [GP][ntok_max]
+  float* red = sc + GP * ntok_max;                  // [kWarps][GP][D]
+  int* blk = reinterpret_cast<int*>(red + kWarps * GP * D);  // [bps]
+  __shared__ float m_s[GP], l_s[GP];
 
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -144,7 +176,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int ch = lane % kL;                 // this lane's 16-byte chunk
+  const int ch = lane % kL;                 // this lane's first chunk
   const int Hq = Hkv * G;
   T* orow = out + ((size_t)b * Hq + (size_t)h * G) * D;
   float* pml = part + (((size_t)b * Hkv + h) * nsplit + s) * 2 * G;   // m, l
@@ -157,12 +189,17 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int jb = s * bps;                   // the split's first column
   const int my_blk = (tid < bps && jb + tid < nbps)
                          ? bt[(size_t)b * nbps + jb + tid] : 0;
-  float qf[G][kVec];                        // this lane's chunk, scaled
+  float qf[GP][kV];                          // this lane's chunks, scaled
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      qf[g][i] = to_f32(q[((size_t)b * Hq + h * G + g) * D + ch * kVec + i]) * scale;
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        qf[g][c * kVec + i] =
+            g < G ? to_f32(q[((size_t)b * Hq + h * G + g) * D +
+                             (ch + c * kL) * kVec + i]) * scale
+                  : 0.f;
   int j_lo, j_hi;
   live_blocks(vl, bs, nbps, window, &j_lo, &j_hi);
   const int j0 = max(jb, j_lo);
@@ -181,15 +218,15 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
   blk += j0 - jb;                           // blk[i]: the block of column j0 + i
   const size_t tok_stride = (size_t)Hkv * D;
-  for (int c = tid; c < ntok * kL; c += kThreads) {
-    const int t = c / kL, cc = c - t * kL;
+  for (int c = tid; c < ntok * kCh; c += kThreads) {
+    const int t = c / kCh, cc = c - t * kCh;
     const int r = t % bs;
     cp_async16(Ks + (size_t)t * D + cc * kVec,
                kp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
   }
   cp_async_commit();
-  for (int c = tid; c < ntok * kL; c += kThreads) {
-    const int t = c / kL, cc = c - t * kL;
+  for (int c = tid; c < ntok * kCh; c += kThreads) {
+    const int t = c / kCh, cc = c - t * kCh;
     const int r = t % bs;
     cp_async16(Vs + (size_t)t * D + cc * kVec,
                vp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
@@ -202,19 +239,25 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int pos0 = j0 * bs;
   for (int t0 = warp * kTpw; t0 < ntok; t0 += kWarps * kTpw) {
     const int t = t0 + lane / kL;
-    float kf[kVec];
-    if (t < ntok) {
-      unpack(Ks + (size_t)t * D + ch * kVec, kf);
-    } else {
+    float kf[kV];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) kf[i] = 0.f;
+    for (int c = 0; c < kC; ++c) {
+      float f[kVec];
+      if (t < ntok) {
+        unpack(Ks + (size_t)t * D + (ch + c * kL) * kVec, f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) f[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) kf[c * kVec + i] = f[i];
     }
-    float dot[G];
+    float dot[GP];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GP; ++g) {
       float a = 0.f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) a += qf[g][i] * kf[i];
+      for (int i = 0; i < kV; ++i) a += qf[g][i] * kf[i];
 #pragma unroll
       for (int o = kL / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
       dot[g] = a;
@@ -223,7 +266,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int pos = pos0 + t;
       const bool ok = pos < vl && (window == 0 || pos >= vl - window);
 #pragma unroll
-      for (int g = 0; g < G; ++g) sc[g * ntok_max + t] = ok ? dot[g] : kNegInf;
+      for (int g = 0; g < GP; ++g) sc[g * ntok_max + t] = ok ? dot[g] : kNegInf;
     }
   }
   __syncthreads();
@@ -252,25 +295,31 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
 
   // P.V: each thread one 16-byte column chunk over a subset of the tokens
-  float acc[G][kVec];
+  float acc[GP][kV];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < kV; ++i) acc[g][i] = 0.f;
   for (int t = tid / kL; t < ntok; t += kThreads / kL) {
-    float vf[kVec];
-    unpack(Vs + (size_t)t * D + ch * kVec, vf);
+    float vf[kV];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int c = 0; c < kC; ++c) {
+      float f[kVec];
+      unpack(Vs + (size_t)t * D + (ch + c * kL) * kVec, f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) vf[c * kVec + i] = f[i];
+    }
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
       const float p = sc[g * ntok_max + t];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[g][i] += p * vf[i];
+      for (int i = 0; i < kV; ++i) acc[g][i] += p * vf[i];
     }
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
+    for (int i = 0; i < kV; ++i) {
       float a = acc[g][i];
 #pragma unroll
       for (int o = 16; o >= kL; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
@@ -278,16 +327,18 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   if (lane < kL) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < GP; ++g)
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        red[(warp * G + g) * D + ch * kVec + i] = acc[g][i];
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i)
+          red[(warp * GP + g) * D + (ch + c * kL) * kVec + i] = acc[g][c * kVec + i];
   }
   __syncthreads();
   for (int e = tid; e < G * D; e += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += red[w * G * D + e];
+    for (int w = 0; w < kWarps; ++w) a += red[w * GP * D + e];
     if (nsplit == 1) {
       store(orow + e, a / fmaxf(l_s[e / D], 1e-30f));
     } else {
@@ -298,6 +349,32 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     pml[tid] = m_s[tid];
     pml[G + tid] = l_s[tid];
   }
+}
+
+// An instantiated group: G query heads a KV head, G a compile-time constant.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const int32_t* __restrict__ bt,
+                   const int32_t* __restrict__ valid, T* __restrict__ out,
+                   float* __restrict__ part, int Hkv, int bs, int nbps,
+                   int bps, int window, float scale) {
+  paged_split<T, D, G, true>(q, kp, vp, bt, valid, out, part, Hkv, G, bs,
+                             nbps, bps, window, scale);
+}
+
+// Any other group: g_real query heads run in GP rows.
+template <typename T, int D, int GP>
+__global__ void __launch_bounds__(kThreads)
+paged_split_padded_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                          const T* __restrict__ vp,
+                          const int32_t* __restrict__ bt,
+                          const int32_t* __restrict__ valid,
+                          T* __restrict__ out, float* __restrict__ part,
+                          int Hkv, int g_real, int bs, int nbps, int bps,
+                          int window, float scale) {
+  paged_split<T, D, GP, false>(q, kp, vp, bt, valid, out, part, Hkv, g_real,
+                               bs, nbps, bps, window, scale);
 }
 
 // Merge a row's split partials: one CTA per (KV head, row).  The
@@ -358,21 +435,35 @@ paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GP, bool kExact>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* valid, void* out, void* part,
-                     int B, int Hkv, int bs, int nbps, int bps, int nsplit,
-                     int window, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes<T>(D, G, bs, bps);
+                     int B, int Hkv, int G, int bs, int nbps, int bps,
+                     int nsplit, int window, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes<T>(D, GP, bs, bps);
+  const dim3 grid(nsplit, Hkv, B);
+  const float scale = rsqrtf((float)D);
   // above 48 KB a CTA's dynamic shared memory must be asked for
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  paged_split_kernel<T, D, G><<<dim3(nsplit, Hkv, B), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
-      (const int32_t*)valid, (T*)out, (float*)part, Hkv, bs, nbps, bps,
-      window, rsqrtf((float)D));
+  cudaError_t err;
+  if constexpr (kExact) {
+    err = cudaFuncSetAttribute(paged_split_kernel<T, D, GP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    paged_split_kernel<T, D, GP><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
+        (const int32_t*)valid, (T*)out, (float*)part, Hkv, bs, nbps, bps,
+        window, scale);
+  } else {
+    err = cudaFuncSetAttribute(paged_split_padded_kernel<T, D, GP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    paged_split_padded_kernel<T, D, GP><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
+        (const int32_t*)valid, (T*)out, (float*)part, Hkv, G, bs, nbps, bps,
+        window, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   paged_combine_kernel<T><<<dim3(Hkv, B), kThreads,
@@ -386,13 +477,27 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* valid, void* out, void* part,
                      int B, int Hkv, int G, int bs, int nbps, int bps,
                      int nsplit, int window, cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch_g<T, D, 1>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
-    case 2: return launch_g<T, D, 2>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
-    case 4: return launch_g<T, D, 4>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
-    case 8: return launch_g<T, D, 8>(q, kp, vp, bt, valid, out, part, B, Hkv, bs, nbps, bps, nsplit, window, stream);
+#define REPRO_PAGED_GROUP(GP, EXACT)                                        \
+  return launch_g<T, D, GP, EXACT>(q, kp, vp, bt, valid, out, part, B, Hkv, \
+                                   G, bs, nbps, bps, nsplit, window, stream);
+  if (exact_group(G)) {
+    switch (G) {
+      case 1: REPRO_PAGED_GROUP(1, true)
+      case 2: REPRO_PAGED_GROUP(2, true)
+      case 4: REPRO_PAGED_GROUP(4, true)
+      case 5: REPRO_PAGED_GROUP(5, true)
+      case 6: REPRO_PAGED_GROUP(6, true)
+      case 8: REPRO_PAGED_GROUP(8, true)
+      case 10: REPRO_PAGED_GROUP(10, true)
+    }
+  }
+  switch (padded_group(G)) {
+    case 4: REPRO_PAGED_GROUP(4, false)
+    case 8: REPRO_PAGED_GROUP(8, false)
+    case 16: REPRO_PAGED_GROUP(16, false)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_PAGED_GROUP
 }
 
 template <typename T>
@@ -405,6 +510,7 @@ cudaError_t launch_t(const void* q, const void* kp, const void* vp,
     case 32: return launch_d<T, 32>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
     case 64: return launch_d<T, 64>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
     case 128: return launch_d<T, 128>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
+    case 256: return launch_d<T, 256>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -425,7 +531,8 @@ extern "C" int repro_paged_attention(const void* q, const void* kp,
                                      int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || bs <= 0 || nbps <= 0 || bps <= 0 ||
       bps > kThreads || nsplit != (nbps + bps - 1) / bps || nsplit > 65535 ||
-      Hkv > 65535 || B > 65535 || (nsplit + 1) * G > 12288 ||
+      Hkv > 65535 || B > 65535 || G <= 0 || padded_group(G) == 0 ||
+      (nsplit + 1) * G > 12288 ||
       (nsplit > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -35,7 +35,7 @@ from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_attention
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_TILE = 64                         # query rows per CTA (csrc kBQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -11,7 +11,10 @@ head, row) reads the row's table itself, copies only the blocks that hold
 valid positions into shared memory and runs an f32 softmax over them, and
 a second kernel merges each row's partials.  Rows shorter than ``nbps``
 blocks point their tail table entries at the trash block 0; those
-positions are masked and never read.
+positions are masked and never read.  D in ``HEAD_DIMS``; any group
+G = Hq/Hkv up to 16 runs: in its own instantiation where ``GROUPS`` has
+one (G a compile-time constant there), otherwise padded to one of
+``PADDED_GROUPS`` (:func:`padded_group`).
 
 The wrapper checks device, dtype, shapes and contiguity and raises on
 anything the kernel does not take.  It never reads a device tensor on the
@@ -34,13 +37,28 @@ from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.ref import ref_paged_attention
 
 NAME = "paged_attention"
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+GROUPS = (1, 2, 4, 5, 6, 8, 10)      # csrc exact_group instantiations
+PADDED_GROUPS = (4, 8, 16)           # csrc instantiations for other G
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448                 # an H100 CTA's shared memory (227 KB)
 SPLIT_TOKENS = 64                   # cache positions a split aims to cover
 MIN_CTAS = 2 * 132                  # two CTAs for each of the H100's SMs
 _WARPS = 4                          # csrc kWarps
+
+
+def padded_group(G: int) -> int:
+    """The instantiated group that runs G query heads a KV head (csrc
+    padded_group): G where it is in ``GROUPS``, else the next larger of
+    ``PADDED_GROUPS``, whose extra query rows compute on zeros and are
+    never written."""
+    if G in GROUPS:
+        return G
+    for gp in PADDED_GROUPS:
+        if 0 < G <= gp:
+            return gp
+    raise ValueError(f"paged_attention kernel takes Hq/Hkv from 1 to "
+                     f"{PADDED_GROUPS[-1]}, got {G}")
 
 
 def split_plan(B: int, Hkv: int, nbps: int, bs: int):
@@ -108,11 +126,12 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
         raise TypeError(f"paged_attention takes float32 or bfloat16 q/kp/vp "
                         f"of one dtype, got {q.dtype}/{kp.dtype}/{vp.dtype}")
     G = Hq // Hkv
-    if D not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"paged_attention kernel takes D in {HEAD_DIMS} "
-                         f"and Hq/Hkv in {GROUPS}, got D={D}, G={G}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes D in {HEAD_DIMS}, "
+                         f"got D={D} (Hq={Hq}, Hkv={Hkv})")
+    gp = padded_group(G)
     nsplit, bps = split_plan(B, Hkv, nbps, bs)
-    smem = split_smem_bytes(D, G, bs, bps, q.element_size())
+    smem = split_smem_bytes(D, gp, bs, bps, q.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"block size {bs} needs {smem} bytes of shared "
                          f"memory per CTA, more than the kernel's "

@@ -39,6 +39,7 @@ ATTN_SWEEP = [
     (1, 2, 2, 128, 128, 64, True, 1),          # window 1: its own key
     (1, 2, 2, 64, 128, 16, True, 0),           # D 16, causal Sq < Skv
     (1, 2, 1, 128, 64, 32, True, 0),           # D 32, causal Sq > Skv
+    (1, 10, 1, 128, 128, 256, True, 32),       # D 256, GQA 10/1, window
 ]
 CARD_ONLY_ATTN = [
     (2, 2, 1, 100, 37, 32, False, 16),         # ragged; rows past every key
@@ -48,6 +49,9 @@ CARD_ONLY_ATTN = [
     (1, 2, 2, 1, 1, 128, True, 0),             # one query, one key
     (1, 2, 2, 130, 130, 128, True, 1),         # window 1, ragged
     (1, 2, 1, 100, 37, 128, True, 16),         # causal rows past every key
+    (1, 10, 1, 2100, 2100, 256, True, 2048),   # recurrentgemma-2b heads,
+                                               # its window bites, ragged
+    (2, 4, 2, 130, 77, 256, False, 0),         # D 256, ragged, Sq > Skv
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -57,7 +61,10 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (kernels/paged_attention.split_plan) cuts rows into multi-block splits:
 # valid = 1, valid on a split boundary, a full row (nbps * bs), windows
 # shorter and longer than a split, G in {1, 2, 4, 8}, bs in {8, 16, 32},
-# and a one-block table, whose single split writes the output itself.
+# and a one-block table, whose single split writes the output itself;
+# then the registry's other groups (5: qwen2.5-14b, 6: mixtral-8x22b, 10
+# with D 256: recurrentgemma-2b) with a row that window 100 cuts, and
+# groups that run padded (3 in 4, 7 in 8, 12 in 16) and 16 at D 256.
 # PAGED_SERVING is the serving path's own shape (llama3-8b heads, 8 slots
 # x 512 tokens in 16-token pages), PAGED_LONG a longer cache.
 PAGED_SWEEP = [
@@ -68,6 +75,13 @@ PAGED_SWEEP = [
     (8, 8, 1, 16, 8, 16, 129, [1, 16, 17, 128, 33, 64, 100, 127]),
     (4, 2, 8, 32, 32, 8, 33, [1, 32, 33, 256]),
     (2, 2, 4, 32, 16, 1, 3, [5, 16]),            # one split: no combine
+    (2, 2, 5, 32, 8, 4, 9, [5, 30]),
+    (2, 2, 6, 64, 16, 8, 17, [17, 120]),
+    (2, 1, 10, 256, 16, 8, 17, [40, 128]),
+    (1, 2, 7, 16, 8, 4, 5, [20]),
+    (1, 1, 16, 256, 16, 4, 5, [60]),
+    (2, 1, 3, 256, 8, 2, 5, [3, 16]),
+    (1, 1, 12, 64, 8, 2, 3, [10]),
 ]
 PAGED_WINDOWS = (0, 6, 100)
 PAGED_SERVING = (8, 8, 4, 128, 16, 32, 257,

@@ -77,7 +77,8 @@ def trunc_normal(gen: torch.Generator, shape, dtype, scale: float):
     """Normal truncated to [-2, 2], times ``scale``; drawn in f32 on the
     generator's device, then cast."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if t.device.type != "meta":             # meta tensors hold shapes only
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)
 
 

@@ -1,6 +1,6 @@
-"""Model entry points: init, cache management and the serve-path wrappers
-(prefill / one decode step) of the decoder-only attention and SSM
-families."""
+"""Model entry points: init, parameter counts, cache management and the
+serve-path wrappers (prefill / one decode step) of the decoder-only
+attention, MoE, SSM and RG-LRU families."""
 
 from __future__ import annotations
 
@@ -21,8 +21,30 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None):
     return T.init_params(cfg, generator, device=device)
 
 
-def param_count(params) -> int:
-    return sum(math.prod(x.shape) for x in tree_leaves(params))
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree with shapes and dtypes only (tensors on the
+    ``meta`` device): full-size configs cost no memory."""
+    return T.init_params(cfg, device="meta")
+
+
+def param_count(cfg_or_params) -> int:
+    """Parameters of a config (counted on :func:`abstract_params`) or of
+    a parameter tree."""
+    tree = (abstract_params(cfg_or_params)
+            if isinstance(cfg_or_params, ModelConfig) else cfg_or_params)
+    return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters per token (MoE: top_k + shared experts only)."""
+    total = param_count(cfg)
+    if not cfg.n_experts:
+        return total
+    f = cfg.moe_d_ff or cfg.d_ff
+    per_expert = 3 * cfg.d_model * f
+    n_blocks = cfg.n_pattern_blocks * cfg.block_pattern.count("moe")
+    inactive = n_blocks * (cfg.n_experts - cfg.top_k) * per_expert
+    return total - inactive
 
 
 # ==========================================================================
@@ -47,6 +69,10 @@ def _slot_cache(cfg, kind: str, nb: Optional[int], batch: int, max_len: int,
         # recurrent state kept in f32 for numerical stability
         return {"conv": zeros(batch, cfg.conv_kernel - 1, dc),
                 "ssm": zeros(batch, H, P, N, dtype=torch.float32)}
+    if kind == "rglru":
+        dr = cfg.rglru_width
+        return {"conv": zeros(batch, cfg.conv_kernel - 1, dr),
+                "h": zeros(batch, dr, dtype=torch.float32)}
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
     return {"k": zeros(batch, max_len, Hkv, D),
             "v": zeros(batch, max_len, Hkv, D)}

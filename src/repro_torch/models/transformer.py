@@ -7,9 +7,10 @@ so the flat leaf order (and the serving pool's Variables) match it leaf
 for leaf.  The reference scans over that axis with ``jax.lax.scan``; here
 a Python loop indexes it.
 
-The port carries the ``attn`` block kinds (llama-family) and ``ssd``
-(Mamba-2).  MoE, RG-LRU, cross-attention and encoder blocks raise
-``NotImplementedError`` until their slices.
+The port carries the ``attn`` block kinds (llama-family), ``moe``
+(Mixtral, DeepSeek-MoE), ``ssd`` (Mamba-2) and ``rglru``
+(RecurrentGemma).  Cross-attention and encoder blocks raise
+``NotImplementedError`` until their slice.
 
 Remat: with ``cfg.remat`` and autograd recording, each super-block runs
 under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
@@ -32,10 +33,12 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
+from repro_torch.models.moe import moe_block
+from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba2_block
 
 ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
-PORTED_KINDS = ("attn", "attn_swa", "attn_local", "ssd")
+PORTED_KINDS = ("attn", "attn_swa", "attn_local", "moe", "ssd", "rglru")
 
 
 def _check_kinds(cfg) -> None:
@@ -71,13 +74,31 @@ def _attn_params(cfg, gen, stack):
     return p
 
 
-def _mlp_params(cfg, gen, stack):
-    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+def _mlp_params(cfg, gen, stack, d_ff=None):
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, _dt(cfg)
     return {
         "w_gate": L.he_init(gen, (d, f), dt, stack),
         "w_up": L.he_init(gen, (d, f), dt, stack),
         "w_down": L.he_init(gen, (f, d), dt, stack),
     }
+
+
+def _moe_params(cfg, gen, stack):
+    """The reference's layout: an f32 router, expert weights [E, d, f] /
+    [E, f, d] (He-scaled by their leading axis, as the reference's
+    ``he_init`` takes it), and the shared experts as one wider MLP."""
+    d, E, dt = cfg.d_model, cfg.n_experts, _dt(cfg)
+    f = cfg.moe_d_ff or cfg.d_ff
+    p = {
+        "w_router": L.he_init(gen, (d, E), torch.float32, stack),
+        "w_gate": L.he_init(gen, (E, d, f), dt, stack),
+        "w_up": L.he_init(gen, (E, d, f), dt, stack),
+        "w_down": L.he_init(gen, (E, f, d), dt, stack),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = _mlp_params(cfg, gen, stack,
+                                  d_ff=f * cfg.n_shared_experts)
+    return p
 
 
 def _ssd_params(cfg, gen, stack):
@@ -98,6 +119,26 @@ def _ssd_params(cfg, gen, stack):
     }
 
 
+def _rglru_params(cfg, gen, stack):
+    d, dr, K, dt = cfg.d_model, cfg.rglru_width, cfg.conv_kernel, _dt(cfg)
+
+    def zeros(n):
+        return torch.zeros(tuple(stack) + (n,), dtype=dt, device=gen.device)
+    return {
+        "w_in_x": L.he_init(gen, (d, dr), dt, stack),
+        "w_in_y": L.he_init(gen, (d, dr), dt, stack),
+        "w_conv": L.trunc_normal(gen, tuple(stack) + (dr, K), dt, 0.1),
+        "w_a": L.he_init(gen, (dr, dr), dt, stack),
+        "b_a": zeros(dr),
+        "w_x": L.he_init(gen, (dr, dr), dt, stack),
+        "b_x": zeros(dr),
+        # the decay parameter stays float32 whatever param_dtype is
+        "lam": torch.full(tuple(stack) + (dr,), 0.7, dtype=torch.float32,
+                          device=gen.device),
+        "w_out": L.he_init(gen, (dr, d), dt, stack),
+    }
+
+
 def _norm_params(cfg, device, stack=()):
     shp = tuple(stack) + (cfg.d_model,)
     dt = _dt(cfg)
@@ -111,13 +152,26 @@ def _block_params(cfg, gen, kind: str, stack=()):
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} arrives in a later "
                                   f"slice of the port")
+    p = {"norm1": _norm_params(cfg, gen.device, stack)}
     if kind == "ssd":               # attention-free: no norm2, no MLP
-        return {"norm1": _norm_params(cfg, gen.device, stack),
-                "ssd": _ssd_params(cfg, gen, stack)}
-    return {"norm1": _norm_params(cfg, gen.device, stack),
-            "attn": _attn_params(cfg, gen, stack),
-            "norm2": _norm_params(cfg, gen.device, stack),
-            "mlp": _mlp_params(cfg, gen, stack)}
+        p["ssd"] = _ssd_params(cfg, gen, stack)
+        return p
+    if kind == "rglru":
+        p["rglru"] = _rglru_params(cfg, gen, stack)
+    else:
+        p["attn"] = _attn_params(cfg, gen, stack)
+    p["norm2"] = _norm_params(cfg, gen.device, stack)
+    if kind == "moe":
+        p["moe"] = _moe_params(cfg, gen, stack)
+    else:
+        p["mlp"] = _mlp_params(cfg, gen, stack)
+    return p
+
+
+class _MetaGenerator:
+    """Stands in for a generator on the ``meta`` device, which torch does
+    not have: the initializers read only its ``device``."""
+    device = torch.device("meta")
 
 
 def init_params(cfg: ModelConfig, generator=None, *, device=None
@@ -129,7 +183,9 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None
     _check_kinds(cfg)
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        # meta: shapes only (model.abstract_params)
+        generator = (_MetaGenerator() if dev.type == "meta"
+                     else torch.Generator(dev).manual_seed(0))
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params "
                          f"requested on {dev}")
@@ -168,7 +224,7 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
     {"kp","vp"} (paged block arenas); the shared fill length — and, for
     paged caches, the shared block table ``cache_bt`` — is threaded
     separately so layer caches can be stacked.  SSD caches are
-    {"conv","ssm"} and take neither.
+    {"conv","ssm"} and RG-LRU caches {"conv","h"}; they take neither.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} arrives in a later "
@@ -177,6 +233,12 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
         h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
                                     cfg, cache=cache)
         return x + h, new_cache
+    if kind == "rglru":
+        h, new_cache = rglru_block(p["rglru"], _norm(cfg, p["norm1"], x),
+                                   cfg, cache=cache)
+        x = x + h
+        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
+        return x, new_cache
     c = None
     if cache is not None:
         c = {**cache, "len": cache_len}
@@ -191,8 +253,14 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
         new_cache = {k: v for k, v in new_cache.items()
                      if k not in ("len", "bt")}
     x = x + h
-    x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
-    return x, new_cache
+    ff_in = _norm(cfg, p["norm2"], x)
+    if kind == "moe":
+        if cfg.moe_impl == "shard_map":
+            raise NotImplementedError(
+                "moe_impl='shard_map' (expert parallelism, models/moe_ep.py)"
+                " arrives with the port's parallel slice")
+        return x + moe_block(p["moe"], ff_in, cfg), new_cache
+    return x + L.mlp_swiglu(p["mlp"], ff_in), new_cache
 
 
 def _superblock(cfg, slot_params, x, *, positions, caches=None,

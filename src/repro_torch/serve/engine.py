@@ -1,18 +1,37 @@
-"""Serving requests.
+"""Batched serving engine: request queue -> batched prefill -> decode loop.
 
-This slice of the port carries the request record the continuous-batching
-scheduler (serve/scheduler/) serves.  The lock-step ``ServingEngine``
-(batched prefill, then lock-step decode through ``serve/terra_decode.py``
-and ``serve/serve_step.py``) arrives in a later slice.
+The counterpart of the reference's ``serve/engine.py``.  A deliberately
+small but real serving loop: requests arrive with prompts; the engine
+forms a batch, prefills once, then decodes all sequences in lock-step,
+retiring finished sequences at EOS / max-tokens.  The decode loop is an
+imperative Python program (per-request bookkeeping, early exits,
+third-party detokenizers all live here), so it runs under Terra
+co-execution by default (``use_terra=True``): the decode step is a single
+DL op, params and KV cache live in the engine's device-resident variable
+store, and only the sampled token is fetched per step (see
+serve/terra_decode.py).  ``use_terra=False`` keeps the captured
+donate-the-cache baseline (serve/serve_step.py).  ``device`` (default:
+the CUDA card) holds the params, the cache and every step.
+Cross-attention and encoder inputs (``cross_states``,
+``frontend_embeds``) arrive with the port's cross-attention slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.core.events import EventStream
+from repro_torch.core.executor.families import bucket_pow2
+from repro_torch.core.pytree import tree_flatten, tree_unflatten
+from repro_torch.core.trace import as_tensor, to_numpy
+from repro_torch.serve.serve_step import jit_serve_steps, reject_side_inputs
+from repro_torch.serve.terra_decode import TerraDecoder
 
 
 @dataclasses.dataclass(eq=False)    # identity semantics: prompt is an array
@@ -38,3 +57,142 @@ class Request:
     def __post_init__(self):
         if self.arrival_time is None:
             self.arrival_time = time.perf_counter()
+
+
+class ServingEngine:
+    """``bucket_batches=True`` pads every batch up to the next power-of-two
+    size (repeating the last prompt row; pad rows decode but are ignored),
+    bounding the number of distinct batch shapes — and therefore TraceGraph
+    families (DESIGN.md §8) — to O(log max-batch)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 512,
+                 temperature: float = 0.0, use_terra: bool = True,
+                 bucket_batches: bool = False, optimize=None, device=None):
+        self.device = dev = resolve_device(device)
+        self.cfg = cfg
+        leaves, treedef = tree_flatten(params)
+        # params already on the device are used as they are (no copy)
+        self.params = tree_unflatten(treedef,
+                                     [as_tensor(l, dev) for l in leaves])
+        self.max_len = max_len
+        self.bucket_batches = bucket_batches
+        self.prefill, self.decode = jit_serve_steps(
+            cfg, max_len, temperature, donate_cache=True, device=dev)
+        # serving defaults to the SAFE pass pipeline (no constant-feed
+        # folding: decode-step token feeds change every call, DESIGN.md
+        # §10); $TERRA_OPTIMIZE still overrides when optimize is None
+        self.terra = (TerraDecoder(cfg, self.params, temperature,
+                                   optimize=optimize, device=dev)
+                      if use_terra else None)
+        # lock-step counters ride the same event substrate as everything
+        # else (DESIGN.md §13): stats IS the stream's counter dict
+        self.events = EventStream(counters={
+            "prefill_tokens": 0, "decode_steps": 0,
+            "decode_time": 0.0, "prefill_time": 0.0})
+        self.stats = self.events.counters
+
+    def run_batch(self, requests: List[Request], **extras) -> List[Request]:
+        """Serve one batch of same-length prompts in lock-step.
+
+        Ragged prompt lengths are rejected up front (the batch tensor is
+        rectangular by construction — variable-length admission is what
+        the continuous-batching scheduler in serve/scheduler/ is for).
+        The decode loop's budget tracks the *live* requests only: rows
+        that hit EOS or their token budget stop counting, so the loop
+        ends exactly when the last live row finishes; pad rows added by
+        ``bucket_batches`` never extend it."""
+        reject_side_inputs(extras.pop("cross_states", None),
+                        extras.pop("frontend_embeds", None))
+        if extras:
+            raise TypeError(f"unexpected arguments {sorted(extras)}")
+        B = len(requests)
+        lengths = {len(r.prompt) for r in requests}
+        if len(lengths) != 1:
+            raise ValueError(
+                f"run_batch requires same-length prompts, got lengths "
+                f"{sorted(lengths)}; use "
+                f"serve.scheduler.ContinuousBatchingScheduler for "
+                f"mixed-length workloads")
+        prompts = np.stack([r.prompt for r in requests]).astype(np.int32)
+        if self.bucket_batches:
+            padded = bucket_pow2(B)
+            if padded > B:
+                prompts = np.concatenate(
+                    [prompts, np.repeat(prompts[-1:], padded - B, axis=0)])
+        t0 = time.perf_counter()
+        next_tok, cache = self.prefill(self.params,
+                                       as_tensor(prompts, self.device))
+        next_tok = to_numpy(next_tok)[:, None]
+        now = time.perf_counter()
+        self.stats["prefill_time"] += now - t0
+        # pad rows are repeats, not work done for a request
+        self.stats["prefill_tokens"] += prompts[:B].size
+
+        def live():
+            return [r for r in requests
+                    if not r.done and len(r.out_tokens) < r.max_new_tokens]
+
+        cap = self.max_len - prompts.shape[1] - 1   # cache capacity
+        t0 = time.perf_counter()
+        # the finally block keeps the engine and the batch's accounting
+        # consistent even when a user stream callback raises mid-batch:
+        # pending symbolic work is drained, unfinished rows get their
+        # finish stamp, and decode_time is recorded
+        try:
+            for r, t in zip(requests, next_tok[:, 0]):
+                r.out_tokens = [int(t)]
+                r.first_token_time = now
+                r.done = (int(t) == r.eos_id)
+                if r.done or r.max_new_tokens <= 1:
+                    r.finish_time = now
+                if r.stream is not None:
+                    r.stream(r, int(t), 0)
+            if self.terra is not None:
+                self.terra.begin_batch(cache)
+            steps = 0
+            while steps < cap:
+                # the break condition counts live rows only: done/pad
+                # rows never stretch the loop
+                if not live():
+                    break
+                if self.terra is not None:
+                    tok = self.terra.step(next_tok)
+                    next_tok = np.asarray(tok)    # Output Fetching point
+                else:
+                    tok, cache = self.decode(self.params, cache,
+                                             as_tensor(next_tok, self.device))
+                    next_tok = to_numpy(tok)
+                steps += 1
+                self.stats["decode_steps"] += 1
+                now = time.perf_counter()
+                for i, r in enumerate(requests):
+                    if r.done or len(r.out_tokens) >= r.max_new_tokens:
+                        continue
+                    t = int(next_tok[i, 0])
+                    r.out_tokens.append(t)
+                    if t == r.eos_id:
+                        r.done = True
+                    # stamp finish at the step the row actually retires,
+                    # not at batch drain — early-EOS latency must not
+                    # include the steps the row merely rode along for
+                    if (r.done or len(r.out_tokens) >= r.max_new_tokens) \
+                            and r.finish_time is None:
+                        r.finish_time = now
+                    if r.stream is not None:
+                        r.stream(r, t, len(r.out_tokens) - 1)
+        finally:
+            if self.terra is not None:
+                self.terra.wait()
+            now = time.perf_counter()
+            for r in requests:
+                if r.finish_time is None:  # capped, or aborted mid-batch
+                    r.finish_time = now
+            self.stats["decode_time"] += now - t0
+        return requests
+
+    def close(self) -> None:
+        if self.terra is not None:
+            self.terra.close()
+        ctx = getattr(self.decode, "ctx", None)     # captured on a card
+        if ctx is not None:
+            ctx.release()

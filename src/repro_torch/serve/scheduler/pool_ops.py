@@ -1,10 +1,11 @@
 """Slot-pool DL operations: ``serve.slot_prefill`` / ``serve.slot_decode``.
 
-The continuous-batching scheduler keeps one fixed KV cache for the whole
-engine lifetime; requests borrow slots and return them at retirement.
-Both pool mutations are registered DL ops (core op registry, DESIGN.md §2
-granularity), so under Terra co-execution they land in the TraceGraph as
-single nodes whose input/output leaves are the pool cache Variables:
+The continuous-batching scheduler keeps one fixed KV/recurrent cache for
+the whole engine lifetime; requests borrow slots and return them at
+retirement.  Both pool mutations are registered DL ops (core op registry,
+DESIGN.md §2 granularity), so under Terra co-execution they land in the
+TraceGraph as single nodes whose input/output leaves are the pool cache
+Variables:
 
 * ``serve.slot_prefill`` — run the model over a length-bucketed prompt
   batch against a *fresh* batch-local cache, sample the first token at
@@ -28,9 +29,9 @@ purely for delivery (DESIGN.md §12).
 
 Paged mode (``page_size > 0``): attention K/V leaves become flat block
 arenas ``[num_blocks, page_size, Hkv, D]`` addressed through a per-slot
-block table ``bt`` [max_slots, nbps] fed each step.  Prefill scatters
-whole bucket rows block-wise through the admitted rows' tables
-(``bt_rows`` [b, nbps]).
+block table ``bt`` [max_slots, nbps] fed each step; recurrent leaves
+(O(1) state per slot) stay dense.  Prefill scatters whole bucket rows
+block-wise through the admitted rows' tables (``bt_rows`` [b, nbps]).
 
 Every update writes into a fresh tensor (a clone), never into a pool
 buffer the engine's store or a rollback snapshot still holds.
@@ -66,15 +67,17 @@ RECURRENT_KINDS = ("ssd", "rglru")
 
 
 def check_supported(cfg) -> None:
-    """The slot pool serves the self-attention and recurrent decoder
-    stacks the port's model carries (``rglru`` raises until its slice);
-    other families raise until their slices."""
+    """The slot pool supports self-attention and recurrent decoder stacks;
+    encoder/cross-attention families need per-request side inputs that the
+    pooled step has no lane for yet (the reference serves those with the
+    lock-step engine; the port's cross-attention slice brings them)."""
     kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
-    bad = [k for k in kinds if k not in T.PORTED_KINDS]
+    bad = [k for k in kinds if k not in PAD_SAFE_KINDS + RECURRENT_KINDS]
     if bad or cfg.enc_layers:
         raise NotImplementedError(
-            f"slot-pooled scheduling of {cfg.name}: block kinds "
-            f"{bad or ['encoder']} arrive in a later slice of the port")
+            f"slot-pooled scheduling does not support {cfg.name}: block "
+            f"kinds {bad or ['encoder']} need per-request cross/frontend "
+            "state, which arrives with the port's cross-attention slice")
 
 
 def pads_allowed(cfg) -> bool:
@@ -91,7 +94,8 @@ def build_pool_cache(cfg, max_slots: int, max_len: int, page_size: int = 0,
     axis of leaf i — stacked layer caches carry a leading n_pattern_blocks
     axis, extra-block caches do not — and ``paged[i]`` marks leaves laid
     out as block arenas instead of slot rows.  Recurrent leaves (``ssd``
-    conv window and state) stay dense slot rows under a page size."""
+    and ``rglru`` conv windows and states) stay dense slot rows under a
+    page size."""
     dt = getattr(torch, cfg.dtype)
 
     def slot(kind, nb):

@@ -20,18 +20,30 @@ def _port_files():
     out = []
     for dirpath, _, names in os.walk(PORT):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    return sorted(out) + [os.path.join(ROOT, "chip_smoke.py")]
+    examples = sorted(os.path.join(ROOT, "examples", n)
+                      for n in os.listdir(os.path.join(ROOT, "examples"))
+                      if n.endswith("_torch.py"))
+    return sorted(out) + examples + [os.path.join(ROOT, "chip_smoke.py")]
 
 
 def _modules():
     mods = []
-    for path in _port_files()[:-1]:
+    for path in _port_files():
+        if not path.startswith(PORT + os.sep):
+            continue
         rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
         parts = rel.split(os.sep)
         if parts[-1] == "__init__":
             parts = parts[:-1]
         mods.append(".".join(parts))
     return mods
+
+
+def _examples():
+    """The port's example programs, as module names (examples/ on the
+    path)."""
+    return [os.path.basename(p)[:-3] for p in _port_files()
+            if os.path.dirname(p) == os.path.join(ROOT, "examples")]
 
 
 def test_no_source_line_imports_jax_or_the_reference():
@@ -43,6 +55,16 @@ def test_no_source_line_imports_jax_or_the_reference():
                     bad.append(f"{os.path.relpath(path, ROOT)}:{i}: "
                                f"{line.strip()}")
     assert not bad, "\n".join(bad)
+
+
+def test_serving_modules_and_examples_are_scanned():
+    """This slice's modules and the port's examples are among the scanned
+    files (the import scan and the import check cover them)."""
+    files = _port_files()
+    for rel in ("models/moe.py", "models/rglru.py", "serve/serve_step.py",
+                "serve/terra_decode.py", "serve/engine.py"):
+        assert os.path.join(PORT, *rel.split("/")) in files, rel
+    assert set(_examples()) >= {"serve_demo_torch", "train_lm_torch"}
 
 
 def test_training_modules_are_scanned_and_import_no_jax():
@@ -79,8 +101,9 @@ def test_executor_passes_scheduler_events_kernels_modules_stay_small():
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import importlib, sys\n"
-        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
-        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}, "
+        f"{os.path.join(ROOT, 'examples')!r}]\n"
+        f"for m in {_modules()!r} + {_examples()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -289,14 +289,15 @@ def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
 
 RMS_NS = "_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f87139"
 SSD_NS = "_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_f5ebf9df"
+PAGED_NS = "_ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_5ce215f8"
 
 
 def test_chip_smoke_names_the_redesigned_kernels():
-    """The rmsnorm and SSD kernels' names as chip_smoke.py logs them, from
-    the mangled names of nvcc's ``-Xptxas -v`` log of the kernels' build
-    (sm_90a): template arguments in any order of types and integers, a
-    repeated type as a substitution, and a kernel that is not a
-    template."""
+    """The rmsnorm, SSD and padded paged kernels' names as chip_smoke.py
+    logs them, from the mangled names of nvcc's ``-Xptxas -v`` log of the
+    kernels' build (sm_90a): template arguments in any order of types and
+    integers, a repeated type as a substitution, and a kernel that is not
+    a template."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -315,6 +316,8 @@ def test_chip_smoke_names_the_redesigned_kernels():
         (SSD_NS + "13ssd_state_f32I13__nv_bfloat16EEvNS_4ArgsE",
          "ssd_state_f32<bf16>"),
         (SSD_NS + "15ssd_pass_kernelENS_4ArgsEi", "ssd_pass_kernel"),
+        (PAGED_NS + "25paged_split_padded_kernelIfLi256ELi16EEEvPKT_S3_S3_"
+         "PKiS5_PS1_Pfiiiiiif", "paged_split_padded_kernel<f32,256,16>"),
     ]
     for mangled, want in names:
         assert cs._short_kernel(mangled) == want

@@ -199,12 +199,18 @@ def test_paged_single_token_decode(llama, kernel):
 
 
 def test_unported_block_kinds_raise():
+    """Cross-attention blocks and encoder stacks arrive in a later slice
+    (``moe`` and ``rglru``, which this test used to build, now port)."""
     from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=16,
+    cross = ModelConfig(name="m", family="vlm", n_layers=2, d_model=16,
+                        n_heads=2, n_kv_heads=1, d_ff=32, vocab=32,
+                        block_pattern=("attn", "cross"))
+    enc = ModelConfig(name="w", family="audio", n_layers=1, d_model=16,
                       n_heads=2, n_kv_heads=1, d_ff=32, vocab=32,
-                      block_pattern=("moe",))
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, device="cpu")
+                      block_pattern=("dec_attn_cross",), enc_layers=1)
+    for cfg in (cross, enc):
+        with pytest.raises(NotImplementedError):
+            TM.init_params(cfg, device="cpu")
 
 
 def test_mamba2_configs_are_the_reference_configs():

@@ -134,6 +134,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         PA.paged_attention(args[0][:, 0], *args[1:])         # not [B,1,H,D]
 
 
+def test_padded_group_mirrors_the_kernels_instantiations():
+    """Every group up to 16 runs: the registry's and 2 in their own
+    instantiation, any other padded to 4, 8 or 16 rows; past 16 (or 0)
+    the wrapper raises, naming the group."""
+    want = {1: 1, 2: 2, 3: 4, 4: 4, 5: 5, 6: 6, 7: 8, 8: 8, 9: 16, 10: 10,
+            11: 16, 12: 16, 13: 16, 14: 16, 15: 16, 16: 16}
+    assert {g: PA.padded_group(g) for g in range(1, 17)} == want
+    for g in (0, 17, 32):
+        with pytest.raises(ValueError, match=str(g)):
+            PA.padded_group(g)
+
+
 def split_k(q, kp, vp, bt, vl, window=0):
     """The kernel's split-K decomposition in plain f32 torch, with the
     wrapper's own split plan: per split (m, l, acc) over its live blocks
