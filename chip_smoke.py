@@ -30,9 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               (deepseek-moe-16b 16/16 x 128, qwen2.5-14b 40/8 x 128,
               mixtral-8x22b 48/8 x 128 with window 4096 and rows up to
               6144 tokens, recurrentgemma-2b 10/1 x 256 with window
-              2048) and flash at D = 256 (10/1 heads, 512 and 4096
-              tokens, causal, window 2048), each a row of its own with
-              its time, bound, SDPA time and plain time.  The build
+              2048), flash at D = 256 (10/1 heads, 512 and 4096
+              tokens, causal, window 2048) and flash at whisper-small's
+              encoder [48, 1500, 64] and cross [48, 128 x 1500, 64]
+              shapes (no mask), each a row of its own with its time,
+              bound, SDPA time and plain time.  The build
               log's registers and spills per kernel (every rmsnorm and
               SSD kernel, paged and flash at D 128 and 256).
 3. serving  — llama3-8b at its published width and depth (random bf16
@@ -118,7 +120,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               exact length): paged launches == attention layers x
               compiled decode steps (counters zeroed just before, read
               just after), every segment captured; then steady decode
-              (8 x 128 tokens, 32 new) captured against
+              (8 x 128 tokens, 32 new; deepseek and recurrentgemma at 8
+              layers, FAMILY_TIMING_LAYERS) captured against
               ``disable_jit()`` in turns: step time, tokens/s, device
               busy share, peak memory, graphs and replays.  qwen2.5-14b
               (48 layers, 40/8 heads: the paged kernel at G = 5) is
@@ -129,7 +132,34 @@ Phases, in order; any failure exits non-zero and prints no result:
               across ServingEngine co-executed, ServingEngine
               ``use_terra=False``, the scheduler and ServingEngine on
               the CPU; a batch-size change re-traces and keeps them.
-13. profile — only with ``--profile``: steady-state decode time per step,
+13. cross   — whisper-small (12 encoder + 12 decoder layers, d 768,
+              vocab 51865) at published width and depth scores 4 audio x
+              1500 frames against 128-token transcripts with the imperative
+              op-level program ``whisper_score_program`` through
+              ``function`` and its default ``optimize="all"``: each layer
+              pair's three attentions (the encoder's bidirectional 1500 x
+              1500, the decoder's causal one, its cross-attention 128 x
+              1500) run the flash kernel, 36 substitutions a graph, flash
+              launches == 36 x compiled calls (counters zeroed just
+              before, read just after), unfused and kernel programs in
+              turns; then float32 (TF32 off): kernel scores against the
+              unfused program's and the CPU's within 1e-4.  Then
+              whisper-small (full) and llama-3.2-vision-90b (full width, 10
+              of 100 layers: two super-blocks, 8 self-attention and 2 gated
+              cross layers, 10.66 B params) served lock-step by
+              ``ServingEngine.run_batch`` (8 requests, 64 / 128-token
+              prompts, 32 new; seeded frame embeddings [8, 1500, 768] f32
+              or vision states [8, 1600, 8192] bf16), co-executed ==
+              ``use_terra=False`` tokens, then captured against
+              ``disable_jit()`` in turns: time to the first token (encode +
+              prefill), decode ms a step, busy share, peak memory, and the
+              device time a step spends re-projecting the cross K/V.  Last,
+              float32 at 2 + 2 layers (whisper) and 5 (the VLM, one
+              super-block): greedy tokens equal co-executed,
+              ``use_terra=False``, captured, under ``disable_jit()`` and on
+              the CPU; a whisper decode step with and without the encoder
+              states gives different tokens.
+14. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -296,13 +326,17 @@ def _short_kernel(mangled: str) -> str:
     end = n.end() + int(n.group(1))
     name, args, k = mangled[n.end():end], [], end + 1
     # a repeated __nv_bfloat16 is a substitution (S<n>_); f32 never is
-    tok = re.compile(r"13__nv_bfloat16|S\d*_|Li(\d+)E|f")
+    tok = re.compile(r"13__nv_bfloat16|S\d*_|Li(\d+)E|Lb([01])E|f")
     while mangled.startswith("I", end) and k < len(mangled) \
             and mangled[k] != "E":
         t = tok.match(mangled, k)
         if not t:
             break
-        args.append(t.group(1) or ("f32" if t.group(0) == "f" else "bf16"))
+        if t.group(2) is not None:          # a bool argument
+            args.append("true" if t.group(2) == "1" else "false")
+        else:
+            args.append(t.group(1)
+                        or ("f32" if t.group(0) == "f" else "bf16"))
         k = t.end()
     return f"{name}<{','.join(args)}>" if args else name
 
@@ -428,6 +462,185 @@ def llama_score_program(core, cfg, params, batch, seq, **function_kw):
         for p in layers:
             x = layer(p, x, cos, sin, bias)
         logits = ops.matmul(norm(x, final_norm), ops.transpose(head))
+        logp = ops.log_softmax(
+            ops.cast(ops.getitem(logits, idx=(slice(None), slice(0, S - 1))),
+                     dtype="float32"), axis=-1)
+        hit = ops.one_hot(np.ascontiguousarray(tokens[:, 1:]),
+                          depth=cfg.vocab, dtype="float32")
+        ll = ops.reduce_mean(ops.reduce_sum(ops.mul(logp, hit), axis=-1),
+                             axis=-1)
+        scores = np.asarray(ll.numpy(), np.float64)    # materialised
+        order = np.argsort(-scores, kind="stable")     # ranked by numpy
+        if not np.isfinite(scores).all():              # a Python branch on it
+            raise FloatingPointError(f"non-finite scores {scores}")
+        return scores, order, ops.getitem(logits, idx=(slice(None), -1))
+
+    return core.function(step, **function_kw)
+
+
+# --------------------------------------------------------------------------
+# the imperative whisper-small scoring program (phase cross)
+# --------------------------------------------------------------------------
+
+def whisper_score_program(core, cfg, params, batch, seq, frames,
+                          **function_kw):
+    """An imperative program that scores candidate transcripts against
+    audio with a Whisper model (n-best rescoring), written against a
+    package's op layer as :func:`llama_score_program` is: ``core`` is
+    ``repro_torch.core`` or the JAX package's ``repro.core``, ``params``
+    ``models.model.init_params``'s layout in that package's arrays.
+    Returns ``core.function(step, **function_kw)``, where ``step(tokens,
+    audio)`` takes int32 ``[batch, seq]`` transcripts and float32
+    ``[batch, frames, d_model]`` frame embeddings and returns ``(scores,
+    order, last_logits)`` as the llama program does.
+
+    The encoder runs over the frames (plus ``enc_pos``) with RoPE and with
+    ``layer_norm`` taken in float32, as ``models/`` run it; the decoder
+    runs with RoPE and a causal bias built in the graph from a
+    positions feed (which ``fold`` bakes), then a cross-attention over the
+    encoder states in each layer; the MLPs are SwiGLU.  Each attention is
+    spelled as ``kernel_sub`` matches it, so under the ``kernels`` pass
+    each becomes ``kernel.attention``: the encoder's bidirectional one (no
+    bias, frames x frames), the decoder's causal one and its cross one (no
+    bias, seq x frames) — 3 substitutions for each pair of an encoder and
+    a decoder layer.
+    """
+    import numpy as np
+    ops, Variable = core.ops, core.Variable
+    B, S, T = batch, seq, frames
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    half, dt = D // 2, cfg.dtype
+    freqs = np.float32(1.0) / (np.float32(cfg.rope_theta) ** (
+        np.arange(half, dtype=np.float32) / np.float32(half)))
+
+    def rope_tables(n):                  # [n, 1, D/2] in float32
+        ang = np.arange(n, dtype=np.float32)[:, None] * freqs[None, :]
+        return np.cos(ang)[:, None, :], np.sin(ang)[:, None, :]
+
+    cos_tab, sin_tab = rope_tables(S)
+    enc_cos_tab, enc_sin_tab = rope_tables(T)
+    pos = np.arange(S, dtype=np.float32)
+
+    def var_layers(stack, names, n, tag):
+        return [{k: Variable(stack[a][b][i], f"{tag}{i}.{k}")
+                 for k, (a, b) in names.items()} for i in range(n)]
+
+    def attn_names(group):
+        return {k: (group, k) for k in ("wq", "wk", "wv", "wo")}
+
+    mlp = {k: ("mlp", k) for k in ("w_gate", "w_up", "w_down")}
+    norms = {f"{n}.{w}": (n, w) for n in ("norm1", "norm2", "norm3")
+             for w in ("scale", "bias")}
+    enc = var_layers(params["encoder"], {
+        **attn_names("attn"), **mlp,
+        **{k: v for k, v in norms.items() if not k.startswith("norm3")}},
+        cfg.enc_layers, "enc")
+    dec = var_layers(params["blocks"][0], {
+        **attn_names("attn"), **mlp, **norms,
+        **{f"x{k}": ("cross", k) for k in ("wq", "wk", "wv", "wo")}},
+        cfg.n_layers, "dec")
+    enc_pos = Variable(params["enc_pos"], "enc_pos")
+    enc_norm = {w: Variable(params["enc_final_norm"][w], f"enc_norm.{w}")
+                for w in ("scale", "bias")}
+    fin_norm = {w: Variable(params["final_norm"][w], f"final_norm.{w}")
+                for w in ("scale", "bias")}
+    embed = Variable(params["embed"], "embed")
+    head = Variable(params["embed" if cfg.tie_embeddings else "lm_head"],
+                    "lm_head")
+
+    def ln(x, scale, bias):              # in float32, cast back
+        y = ops.layer_norm(ops.cast(x, dtype="float32"), scale, bias,
+                           eps=1e-5)
+        return ops.cast(y, dtype=dt)
+
+    def rope(x, cos, sin):               # x [B, S, H, D]
+        x1 = ops.getitem(x, idx=(Ellipsis, slice(0, half)))
+        x2 = ops.getitem(x, idx=(Ellipsis, slice(half, None)))
+        out = ops.concat(ops.sub(ops.mul(x1, cos), ops.mul(x2, sin)),
+                         ops.add(ops.mul(x2, cos), ops.mul(x1, sin)),
+                         axis=-1)
+        return ops.cast(out, dtype=dt)
+
+    def heads(x, n, h=H):                # [B, n, h*D] -> [B*H, n, D]
+        x = ops.transpose(ops.reshape(x, new_shape=(B, n, h, D)),
+                          axes=(0, 2, 1, 3))
+        if h != H:                       # GQA: KV head j serves H/h heads
+            x = ops.stack_op(*[x] * (H // h), axis=2)
+        return ops.reshape(x, new_shape=(B * H, n, D))
+
+    def merge(o, n):                     # [B*H, n, D] -> [B, n, H*D]
+        return ops.reshape(ops.transpose(
+            ops.reshape(o, new_shape=(B, H, n, D)), axes=(0, 2, 1, 3)),
+            new_shape=(B, n, H * D))
+
+    def attend(q, k, v, n):              # no bias: kernel_sub's full form
+        s = ops.mul(ops.einsum(q, k, expr="bsd,btd->bst"), D ** -0.5)
+        return merge(ops.einsum(ops.softmax(s, axis=-1), v,
+                                expr="bst,btd->bsd"), n)
+
+    def ffn(p, x, norm):
+        h = ln(x, p[f"{norm}.scale"], p[f"{norm}.bias"])
+        m = ops.mul(ops.silu(ops.matmul(h, p["w_gate"])),
+                    ops.matmul(h, p["w_up"]))
+        return ops.add(x, ops.matmul(m, p["w_down"]))
+
+    def enc_layer(p, x, cos, sin):       # RoPE, as models/attention.py
+        h = ln(x, p["norm1.scale"], p["norm1.bias"])
+        q = rope(ops.reshape(ops.matmul(h, p["wq"]), new_shape=(B, T, H, D)),
+                 cos, sin)
+        k = rope(ops.reshape(ops.matmul(h, p["wk"]),
+                             new_shape=(B, T, Hkv, D)), cos, sin)
+        o = attend(heads(ops.reshape(q, new_shape=(B, T, H * D)), T),
+                   heads(ops.reshape(k, new_shape=(B, T, Hkv * D)), T, Hkv),
+                   heads(ops.matmul(h, p["wv"]), T, Hkv), T)
+        x = ops.add(x, ops.matmul(o, p["wo"]))
+        return ffn(p, x, "norm2")
+
+    def dec_layer(p, x, states, cos, sin, bias):
+        h = ln(x, p["norm1.scale"], p["norm1.bias"])
+        q = rope(ops.reshape(ops.matmul(h, p["wq"]), new_shape=(B, S, H, D)),
+                 cos, sin)
+        k = rope(ops.reshape(ops.matmul(h, p["wk"]),
+                             new_shape=(B, S, Hkv, D)), cos, sin)
+        q = ops.reshape(ops.transpose(q, axes=(0, 2, 1, 3)),
+                        new_shape=(B * H, S, D))
+        k = heads(ops.reshape(k, new_shape=(B, S, Hkv * D)), S, Hkv)
+        s = ops.einsum(q, k, expr="bsd,btd->bst")
+        s = ops.add(ops.mul(s, D ** -0.5), bias)
+        o = ops.einsum(ops.softmax(s, axis=-1),
+                       heads(ops.matmul(h, p["wv"]), S, Hkv),
+                       expr="bst,btd->bsd")
+        # f32 out of the biased chain, q's dtype out of kernel.attention
+        o = ops.cast(o, dtype=dt)
+        x = ops.add(x, ops.matmul(merge(o, S), p["wo"]))
+        h = ln(x, p["norm2.scale"], p["norm2.bias"])
+        o = attend(heads(ops.matmul(h, p["xwq"]), S),
+                   heads(ops.matmul(states, p["xwk"]), T, Hkv),
+                   heads(ops.matmul(states, p["xwv"]), T, Hkv), S)
+        x = ops.add(x, ops.matmul(o, p["xwo"]))
+        return ffn(p, x, "norm3")
+
+    def step(tokens, audio):
+        tokens = np.asarray(tokens, np.int32)
+        # one line per op: feeds of one aval on one line are one node
+        x = ops.cast(audio, dtype=dt)
+        x = ops.add(x, ops.getitem(enc_pos, idx=(slice(0, T),)))
+        cos = ops.identity(enc_cos_tab)
+        sin = ops.identity(enc_sin_tab)
+        for p in enc:
+            x = enc_layer(p, x, cos, sin)
+        states = ln(x, enc_norm["scale"], enc_norm["bias"])
+        cos = ops.identity(cos_tab)
+        sin = ops.identity(sin_tab)
+        tril = ops.cast(ops.greater_equal(ops.reshape(pos, new_shape=(S, 1)),
+                                          ops.reshape(pos, new_shape=(1, S))),
+                        dtype="float32")
+        bias = ops.mul(ops.sub(tril, 1.0), 1e9)        # causal (tril-1)*1e9
+        x = ops.cast(ops.embedding(embed, tokens), dtype=dt)
+        for p in dec:
+            x = dec_layer(p, x, states, cos, sin, bias)
+        logits = ops.matmul(ln(x, fin_norm["scale"], fin_norm["bias"]),
+                            ops.transpose(head))
         logp = ops.log_softmax(
             ops.cast(ops.getitem(logits, idx=(slice(None), slice(0, S - 1))),
                      dtype="float32"), axis=-1)
@@ -928,6 +1141,71 @@ def flash_d256_row():
         del qkv, kernel, lib, mask
         release()
     return row
+
+
+# whisper-small's two unmasked attentions as kernel.attention hands them
+# to the flash wrapper ([B*H, 1, S, D]: 4 audio x 12 heads, 64 wide) on
+# the scoring program's path (phase cross): (name, Sq, Skv)
+WHISPER_FLASH = (("encoder", 1500, 1500), ("cross", 128, 1500))
+WHISPER_BH = 4 * 12
+
+
+def flash_whisper_rows():
+    """flash_attention at whisper-small's encoder (1500 x 1500) and cross
+    (128 queries x 1500 keys) shapes, no mask: against its plain version
+    in f32 and bf16, then timed in bf16 against SDPA with no mask (so
+    that SDPA takes its flash path) in three turns by device time, over
+    rotating copies of q/k/v, beside the plain version's time and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ref_attention
+    rows = []
+    for name, Sq, Skv in WHISPER_FLASH:
+        errs = {}
+        label = f"flash_attention whisper {name} [{WHISPER_BH},1,{Sq}|{Skv},64]"
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            q = seeded((WHISPER_BH, 1, Sq, 64), dtype, 50)
+            k = seeded((WHISPER_BH, 1, Skv, 64), dtype, 51)
+            v = seeded((WHISPER_BH, 1, Skv, 64), dtype, 52)
+            out = kops.flash_attention(q, k, v, causal=False)
+            ref = ref_attention(q, k, v, causal=False)
+            err, ok = close_err(out, ref, TOL[dn])
+            torch.cuda.synchronize()
+            errs[dn] = err
+            log(f"{label} {dn}: max_abs_err={err:.3e} (tol {TOL[dn]})")
+            check(ok, f"flash_attention disagrees at whisper's {name} shape "
+                  f"{dn}: err={err}")
+            del q, k, v, out, ref
+        qkv = [[seeded((WHISPER_BH, 1, Sq if j == 0 else Skv, 64),
+                       torch.bfloat16, 60 + 3 * i + j) for j in range(3)]
+               for i in range(4)]
+        kernel = rotating([lambda t=t: kops.flash_attention(*t, causal=False)
+                           for t in qkv])
+        lib = rotating([lambda t=t: F.scaled_dot_product_attention(*t)
+                        for t in qkv])
+        got, ms, lib_ms = turns(kernel, lib, 20)
+        plain_ms = time_ms(rotating([lambda t=t: ref_attention(
+            *t, causal=False) for t in qkv]), 5)
+        bound, by = attn_bound_ms(qkv[0][0], qkv[0][1], False)
+        log(f"{label} bf16 turns (kernel, sdpa) ms: "
+            + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in got))
+        log(f"{label} bf16: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.5f} ms ({ms / lib_ms:.2f}x), bound {bound:.5f} "
+            f"ms ({by})")
+        rows.append({"name": f"flash_attention[whisper-small {name}]",
+                     "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:26",
+                     "launches": None, "max_abs_err": errs["bfloat16"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms})
+        del qkv, kernel, lib
+        release()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -2445,6 +2723,13 @@ FAMILIES = (
 # served only (no steady-decode turns, no equality): the paged kernel at
 # G = 5 on a main path
 SERVED_ONLY = (("qwen2.5-14b", None, SERVE_KW, (12, 16, 256, 32, 64)),)
+# the steady-decode timing arms' depth, cut from 28 and 26 layers
+# to keep the script's wall near 600 s once phase cross joined it (each
+# eager arm's turn costs time in proportion to its launches); the served
+# runs above stay at full depth
+FAMILY_TIMING_LAYERS = {"deepseek-moe-16b": 8,
+                        # two super-blocks and the two extra rglru blocks
+                        "recurrentgemma-2b": 8}
 FAMILY_EQ_LAYERS = {"deepseek-moe-16b": 4, "mixtral-8x22b": 4,
                     # one super-block (rglru, rglru, attn_local) and the
                     # two extra rglru blocks: the least depth with attention
@@ -2538,7 +2823,20 @@ def serve_family(arch, layers, serve_kw, traffic, kernel_rows, profile_dir,
         release()
         return None
 
-    # steady decode: captured (this engine) against disable_jit() in turns
+    # steady decode, captured against disable_jit() in turns: this engine,
+    # or at FAMILY_TIMING_LAYERS depth a fresh one
+    t_layers = FAMILY_TIMING_LAYERS.get(arch)
+    if t_layers is not None:
+        sched.close()
+        del params, sched
+        release()
+        cfg = family_config(arch, t_layers)
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        n_attn = attn_layers(cfg)
+        sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                            **serve_kw)
+        log(f"families {arch}: steady decode timed at {cfg.n_layers} "
+            f"layers ({n_attn} with attention)")
     with arm_context(True):
         eager = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
                                             **serve_kw)
@@ -2553,7 +2851,7 @@ def serve_family(arch, layers, serve_kw, traffic, kernel_rows, profile_dir,
             with arm_context(jit_off):
                 sc.serve(batch)
             return sc.stats["decode_steps"] - st0
-        if name == "eager":
+        if name == "eager" or t_layers is not None:
             run()                           # tracing, steady entry
         arms[name] = (run, sc._tf.engine.capture)
     out = capture_turns(arch, "decode_step", arms,
@@ -2709,6 +3007,508 @@ def phase_families(kernel_rows, profile_dir=None):
     release()
 
 
+# --------------------------------------------------------------------------
+# phase cross: whisper-small and llama-3.2-vision-90b served lock-step,
+# whisper scoring on the flash kernel's bidirectional and cross forms
+# --------------------------------------------------------------------------
+
+# (arch, decoder layers kept (None: the published depth), requests, prompt
+# tokens, new tokens); the VLM's 100 layers are 87.67 B params (175 GB in
+# bf16): cut to two of its 20 super-blocks (8 attn + 2 cross, 10.66 B)
+CROSS_SERVE = (("whisper-small", None, 8, 64, 32),
+               ("llama-3.2-vision-90b", 10, 8, 128, 32))
+# equality depth: whisper 2 encoder + 2 decoder layers, the VLM one
+# super-block (4 attn + its cross layer)
+CROSS_EQ_LAYERS = {"whisper-small": 2, "llama-3.2-vision-90b": 5}
+# batches the CPU arm of the equality serves (the card's arms serve two):
+# the VLM's reads 25.7 GB of f32 weights a step on the host
+CROSS_EQ_CPU_BATCHES = {"whisper-small": 2, "llama-3.2-vision-90b": 1}
+WHISPER_SCORE = (4, 128, 1500)       # audio, transcript tokens, frames
+WHISPER_SCORE_CALLS = 6
+WHISPER_SCORE_TOL = 1e-4             # f32 scores (phase 6's rule)
+
+
+def cross_config(arch, layers, **kw):
+    cfg = family_config(arch, layers, **kw)
+    if cfg.enc_layers and layers is not None:
+        cfg = dataclasses.replace(cfg, enc_layers=layers)
+    return cfg
+
+
+def seed_gates(cfg, params, seed=3):
+    """Set every ``cross`` slot's gate (zero at init, which would hide
+    the vision states from the tokens) to seeded values in [0.3, 1]."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    for slot, kind in zip(params["blocks"], cfg.block_pattern):
+        if kind == "cross":
+            g = slot["gate"]
+            g.copy_(torch.from_numpy(rng.uniform(0.3, 1.0, tuple(g.shape))
+                                     .astype(np.float32)).to(g))
+
+
+def side_input(cfg, batch, seed, device="cuda"):
+    """Seeded side input on ``device``: Whisper's frame embeddings (f32)
+    or the VLM's vision states (the model's dtype), [batch, T, d]."""
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                    generator=gen, device=device)
+    if cfg.enc_layers:
+        return "frontend_embeds", x
+    return "cross_states", x.to(getattr(torch, cfg.dtype))
+
+
+def reproject_ms(cfg, params, states):
+    """Milliseconds a decode step spends re-projecting the cross K/V from
+    ``states`` [B, T, d] (every cross-attention, as the reference does
+    each step; not cached), by CUDA events around its products."""
+    import torch
+    from repro_torch.models.layers import dense
+    ps = [(slot["cross"], kind) for slot, kind in
+          zip(params["blocks"], cfg.block_pattern)
+          if kind in ("cross", "dec_attn_cross")]
+
+    def run():
+        with torch.no_grad():
+            for p, _ in ps:
+                for i in range(cfg.n_pattern_blocks):
+                    dense(states, p["wk"][i])
+                    dense(states, p["wv"][i])
+    return time_ms(run, 10)
+
+
+def cross_profile(run, steps_of):
+    """One profiler window over a captured batch (``run()``): device ms a
+    decode step by kernel class (matrix products: cuBLAS's nvjet / gemm
+    kernels; copies; the rest: the chunked attention's and the norms'
+    elementwise and reduction kernels) and the six kernels that take the
+    most device time, a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps = steps_of(run())
+        torch.cuda.synchronize()
+    classes = {"products": 0.0, "copies": 0.0, "rest": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us <= 0:
+            continue
+        key = e.key.lower()
+        if any(x in key for x in ("nvjet", "gemm", "xmma", "cutlass",
+                                  "gemv")):
+            classes["products"] += us
+        elif "memcpy" in key or "copy" in key:
+            classes["copies"] += us
+        else:
+            classes["rest"] += us
+        top.append((us, re.sub(r"\(.*$", "", e.key)[:70]))
+    top.sort(reverse=True)
+    return ({k: round(v / steps / 1e3, 4) for k, v in classes.items()},
+            [(n, round(us / steps / 1e3, 4)) for us, n in top[:6]])
+
+
+def serve_cross(arch, layers, n, prompt, new):
+    """One side-input family at published width, bf16 random weights:
+    ``ServingEngine.run_batch`` co-executed and with ``use_terra=False``
+    (equal greedy tokens), then the co-executed engine captured against
+    one made under ``disable_jit()``, in turns: time to the first token
+    (encode + prefill), decode ms a step, busy share, peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = cross_config(arch, layers)
+    release()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    seed_gates(cfg, params)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    log(f"cross {arch}: {n_params / 1e9:.4f} B params ({n_params * 2 / 1e9:.2f}"
+        f" GB bf16), {cfg.n_layers} decoder layers, {cfg.enc_layers} encoder "
+        f"layers, init {time.perf_counter() - t0:.1f} s, {gib_allocated()} GiB"
+        f" allocated")
+    max_len = prompt + new + 8
+    toks = {}
+    for terra in (True, False):
+        eng = ServingEngine(cfg, params, max_len=max_len, use_terra=terra)
+        for b in range(2):          # the second batch replays the graphs
+            kw, side = side_input(cfg, n, 100 + b)
+            reqs = make_requests(cfg, n, 100 + b, prompt, prompt, new, new)
+            eng.run_batch(reqs, **{kw: side})
+            toks[(terra, b)] = [r.out_tokens for r in reqs]
+            check(all(len(r.out_tokens) == new for r in reqs),
+                  f"{arch}: a request got fewer than {new} tokens")
+        if terra:
+            check_captured(f"{arch} lock-step decode", eng.terra.engine)
+        ctx = eng.decode.ctx
+        log(f"cross {arch} {'terra' if terra else 'use_terra=False'} serve "
+            f"steps: {json.dumps(ctx.stats)}")
+        check(ctx.stats["graphs"] > 0 and ctx.stats["replays"] > 0,
+              f"{arch}: the serving steps were not captured")
+        eng.close()
+        del eng
+    for b in range(2):
+        check(toks[(True, b)] == toks[(False, b)],
+              f"{arch}: greedy tokens differ co-executed vs use_terra=False "
+              f"in batch {b}")
+    log(f"cross {arch}: greedy tokens equal co-executed and use_terra=False "
+        f"({2 * n} requests, {2 * n * new} tokens)")
+
+    _, states = side_input(cfg, n, 7)
+    if cfg.enc_layers:
+        with torch.no_grad():
+            from repro_torch.models import transformer as T
+            states = T.encode(cfg, params, states)
+    re_ms = reproject_ms(cfg, params, states)
+    log(f"cross {arch}: re-projecting the cross K/V from {tuple(states.shape)}"
+        f" states takes {re_ms:.4f} ms a decode step (CUDA events)")
+    del states
+
+    engines, arms, side_ms = {}, {}, {}
+    for name in ("captured", "eager"):
+        with arm_context(name == "eager"):
+            engines[name] = ServingEngine(cfg, params, max_len=max_len)
+        side_ms[name] = {"ttft": [], "decode": []}
+
+        def run(eng=engines[name], jit_off=name == "eager", seed=[300],
+                rec=side_ms[name]):
+            seed[0] += 1
+            kw, side = side_input(cfg, n, seed[0])
+            reqs = make_requests(cfg, n, seed[0], prompt, prompt, new,
+                                 new)
+            st0 = dict(eng.stats)
+            with arm_context(jit_off):
+                eng.run_batch(reqs, **{kw: side})
+            steps = eng.stats["decode_steps"] - st0["decode_steps"]
+            rec["ttft"].append(1e3 * (eng.stats["prefill_time"]
+                                      - st0["prefill_time"]))
+            rec["decode"].append(1e3 * (eng.stats["decode_time"]
+                                        - st0["decode_time"]) / steps)
+            return steps
+        for _ in range(2):                  # tracing, warm-up, capture
+            run()
+        for v in side_ms[name].values():
+            v.clear()
+        arms[name] = (run, engines[name].terra.engine.capture)
+    out = capture_turns(f"{arch} lock-step", "decode_step", arms)
+    eng = engines["captured"]
+    if eng.encode is not None:      # the encoder alone, replayed
+        _, frames = side_input(cfg, n, 9)
+        out["encode_ms"] = round(time_ms(
+            lambda: eng.encode(eng.params, frames), 5), 3)
+    by_class, top = cross_profile(arms["captured"][0], lambda steps: steps)
+    out["captured"]["device_ms_by_class_per_step"] = by_class
+    out["captured"]["top_kernels_ms_per_step"] = top
+    for name, rec in side_ms.items():
+        # the arm's three turns (later batches ran under the profiler)
+        ttft, dec = rec["ttft"][:3], rec["decode"][:3]
+        out[name]["ttft_ms"] = round(float(np.median(ttft)), 3)
+        out[name]["decode_ms_per_step"] = round(float(np.median(dec)), 3)
+        out[name]["ttft_turns_ms"] = [round(t, 3) for t in ttft]
+        out[name]["decode_turns_ms"] = [round(t, 3) for t in dec]
+        out[name]["tokens_per_s"] = round(
+            n * 1e3 / out[name]["decode_ms_per_step"], 1)
+    out["reproject_ms_per_step"] = round(re_ms, 4)
+    check_captured(f"{arch} timed decode", engines["captured"].terra.engine)
+    check_eager(f"{arch} timed decode", engines["eager"].terra.engine)
+    for eng in engines.values():
+        eng.close()
+    del params, engines, arms, run
+    release()
+    return out
+
+
+def cross_equality(arch):
+    """Full width at CROSS_EQ_LAYERS depth, float32, TF32 off: greedy
+    tokens of two batches of four same-length requests equal across
+    ServingEngine co-executed and ``use_terra=False``, each captured and
+    under ``disable_jit()``, and on the CPU (CROSS_EQ_CPU_BATCHES).  For Whisper, one decode step
+    with the encoder states and one without (as the reference's
+    ``run_batch`` decodes) give different tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    release()
+    cfg = cross_config(arch, CROSS_EQ_LAYERS[arch], dtype="float32",
+                       param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    seed_gates(cfg, params)
+    rng = np.random.RandomState(5)
+    batches = [[rng.randint(0, cfg.vocab, 24).astype(np.int32)
+                for _ in range(4)] for _ in range(2)]
+    news = [12, 8, 12, 10]
+    sides = [side_input(cfg, 4, 20 + b) for b in range(2)]
+
+    def serve(device, use_terra, params, eager=False, n_batches=2):
+        with arm_context(eager):
+            eng = ServingEngine(cfg, params, max_len=48, use_terra=use_terra,
+                                device=device)
+            out = []
+            for prompts, (kw, side) in zip(batches[:n_batches], sides):
+                reqs = [Request(prompt=p, max_new_tokens=m, arrival_time=0.0)
+                        for p, m in zip(prompts, news)]
+                eng.run_batch(reqs, **{kw: side.to(device or "cuda")})
+                out.append([r.out_tokens for r in reqs])
+        label = (f"{arch} {'terra' if use_terra else 'use_terra=False'}"
+                 f"{' disable_jit' if eager else ''}")
+        if device is None and use_terra:
+            (check_eager if eager else check_captured)(label,
+                                                       eng.terra.engine)
+        eng.close()
+        return out
+
+    arms = {}
+    for terra in (True, False):
+        for eager in (False, True):
+            arms[(terra, eager)] = serve(None, terra, params, eager)
+    n_cpu = CROSS_EQ_CPU_BATCHES[arch]
+    arms["cpu"] = serve("cpu", True, tree_map(lambda t: t.cpu(), params),
+                        n_batches=n_cpu)
+    base = arms[(True, False)]
+    for name, toks in arms.items():
+        check(toks == base[:len(toks)], f"{arch}: greedy tokens differ, "
+              f"co-executed captured {base} vs {name} {toks}")
+    log(f"cross {arch} equality at {cfg.n_layers} layers (f32): co-executed "
+        f"== use_terra=False, captured == disable_jit() on 2 x 4 requests, "
+        f"{sum(len(t) for b in base for t in b)} tokens, == CPU on {n_cpu}")
+    if cfg.enc_layers:
+        kw, fe = sides[0]
+        prompts = torch.from_numpy(np.stack(batches[0])).cuda()
+        with torch.no_grad():
+            logits, cache = M.prefill(cfg, params, prompts, 48,
+                                      frontend_embeds=fe)
+            tok = torch.argmax(logits, -1)[:, None]
+            states = T.encode(cfg, params, fe)
+            # decode_step writes no cache in place: both read the prefill's
+            with_audio, _ = M.decode_step(cfg, params, cache, tok,
+                                          cross_states=states)
+            without, _ = M.decode_step(cfg, params, cache, tok)
+        a, b = with_audio.argmax(-1).tolist(), without.argmax(-1).tolist()
+        log(f"cross {arch}: a decode step with the encoder states gives "
+            f"tokens {a}, without them {b}")
+        check(a != b, f"{arch}: decode ignores the encoder states")
+    del params
+    release()
+
+
+def attention_forms(engine):
+    """(Sq, Skv, causal) -> the count of ``kernel.attention`` nodes in an
+    engine's compiled graph (Skv from the node that feeds k)."""
+    import collections
+    otg = engine.gp.otg
+    forms = collections.Counter()
+    for n in otg.nodes.values():
+        if n.kind == "op" and n.op_name == "kernel.attention":
+            src = n.srcs[1]
+            skv = (otg.nodes[src[1]].out_avals[src[2]].shape[1]
+                   if src[0] == "node" else None)
+            forms[(n.out_avals[0].shape[1], skv,
+                   bool(dict(n.attrs)["causal"]))] += 1
+    return forms
+
+
+def whisper_score_inputs(cfg, i, device="cuda"):
+    """Seeded transcripts [4, 128] (numpy) and frame embeddings [4, 1500,
+    d] (float32, on ``device``: the program's feed; the same values on
+    every device)."""
+    import numpy as np
+    import torch
+    B, S, T = WHISPER_SCORE
+    rng = np.random.RandomState(2000 + i)
+    tok = rng.randint(0, cfg.vocab, (B, S)).astype(np.int32)
+    audio = rng.randn(B, T, cfg.d_model).astype(np.float32)
+    return tok, torch.from_numpy(audio).to(device)
+
+
+def whisper_score_call(step, cfg, i, device="cuda"):
+    import numpy as np
+    B = WHISPER_SCORE[0]
+    scores, order, last = step(*whisper_score_inputs(cfg, i, device))
+    last = last.numpy()
+    check(scores.shape == (B,) and np.isfinite(scores).all()
+          and (scores < 0).all(), f"bad whisper scores {scores}")
+    check(last.shape == (B, cfg.vocab) and np.isfinite(last).all(),
+          f"bad whisper next-token logits {last.shape}")
+    check(sorted(order.tolist()) == list(range(B)), f"bad ranking {order}")
+    return scores
+
+
+def whisper_scoring(kernel_rows):
+    """whisper-small at full width and depth scoring 4 audio x 1500
+    frames against 128-token transcripts through ``function`` with the
+    default ``optimize="all"`` (the kernels pass): 36 substitutions a
+    graph in three forms, flash launches = 36 x compiled calls (counters
+    zeroed just before, read just after), the unfused program and the
+    kernel one in turns (bf16).  Then float32 with TF32 off: the kernel
+    program's scores against the unfused program's on the card and
+    against the CPU, within WHISPER_SCORE_TOL."""
+    import numpy as np
+    import torch
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import model as M
+
+    B, S, T = WHISPER_SCORE
+    cfg = get_config("whisper-small")
+    n_attn = cfg.n_layers + 2 * cfg.n_layers    # encoder, causal, cross
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    step = whisper_score_program(core, cfg, params, B, S, T)
+    peak = {"traced": (0, 0), "compiled": (0, 0)}  # (peak, held before)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WHISPER_SCORE_CALLS):
+        traced = step.stats.get("traced_iterations", 0)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        whisper_score_call(step, cfg, i)
+        step.wait()
+        kind = ("traced" if step.stats["traced_iterations"] > traced
+                else "compiled")
+        peak[kind] = max(peak[kind], (torch.cuda.max_memory_allocated(),
+                                      held))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = step.stats
+    compiled = st["iterations"] - st["traced_iterations"]
+    forms = attention_forms(step.engine)
+    log("cross whisper scoring counters: " + json.dumps(
+        {k: st.get(k) for k in ("iterations", "traced_iterations",
+                                 "retraces", "replays", "graph_versions",
+                                 "kernels_substituted", "feeds_folded")}
+        | {"phase": step.phase}))
+    log(f"cross whisper scoring: launches {json.dumps(counts)}; "
+        f"kernel.attention forms (Sq, Skv, causal): "
+        f"{json.dumps({str(k): v for k, v in forms.items()})}; "
+        f"{WHISPER_SCORE_CALLS} calls of {B} x {S} tokens against {B} x {T} "
+        f"frames in {wall:.2f} s (includes tracing); peak device memory "
+        f"{peak['traced'][0] / 2**30:.2f} GiB in a traced call, "
+        f"{peak['compiled'][0] / 2**30:.2f} GiB in a compiled call "
+        f"({peak['traced'][1] / 2**30:.2f} and "
+        f"{peak['compiled'][1] / 2**30:.2f} GiB held as each began)")
+    check(step.phase == "co-execution", f"phase {step.phase}")
+    check(st["graph_versions"] == 1 and st["kernels_substituted"] == n_attn,
+          f"kernels_substituted {st['kernels_substituted']} != {n_attn} "
+          f"(graph_versions {st['graph_versions']})")
+    check(forms == {(T, T, False): cfg.n_layers, (S, S, True): cfg.n_layers,
+                    (S, T, False): cfg.n_layers},
+          f"kernel.attention forms {dict(forms)}")
+    check(compiled > 0, "no call ran the compiled graph")
+    check(counts["flash_attention"] == compiled * n_attn,
+          f"flash_attention launches {counts['flash_attention']} != "
+          f"{compiled} compiled calls x {n_attn}")
+    # one launch of each form a layer a compiled call (forms checked above)
+    for row in kernel_rows:
+        if row["name"].startswith("flash_attention[whisper-small"):
+            row["launches"] = compiled * cfg.n_layers
+
+    unfused = whisper_score_program(core, cfg, params, B, S, T,
+                                    optimize="safe")
+    arms = {"kernel": step, "unfused": unfused}
+    for i in range(3):                    # tracing + co-execution entry
+        whisper_score_call(unfused, cfg, i)
+    got = {}
+    for name in ("unfused", "kernel", "kernel", "unfused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = [whisper_score_call(arms[name], cfg, 100 + i)
+                     for i in range(4)]
+        arms[name].wait()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 4 * 1e3
+        log(f"cross whisper scoring turn {name}: {ms:.1f} ms a call "
+            f"({B * S / ms * 1e3:.0f} transcript tokens/s)")
+    diff = max(float(abs(a - b).max())
+               for a, b in zip(got["kernel"], got["unfused"]))
+    log(f"cross whisper scoring bf16, kernel vs unfused: max abs diff "
+        f"{diff:.3e} (bf16 rounding; checked in float32 below)")
+    for fn in arms.values():
+        fn.close()
+    del step, unfused, arms, params
+    release()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(1))
+    scores = {}
+    for name, opt in (("kernel", None), ("unfused", "safe")):
+        kw = {} if opt is None else {"optimize": opt}
+        fn = whisper_score_program(core, cfg, params, B, S, T, **kw)
+        before = read_counts()["flash_attention"]
+        scores[name] = [whisper_score_call(fn, cfg, i) for i in range(4)]
+        fn.wait()
+        launched = read_counts()["flash_attention"] - before
+        log(f"cross whisper scoring f32 arm {name}: phase {fn.phase}, "
+            f"kernels_substituted {fn.stats.get('kernels_substituted')}, "
+            f"flash launches {launched}")
+        check(fn.phase == "co-execution", f"{name} phase {fn.phase}")
+        if name == "kernel":
+            check(launched == n_attn * (4 - fn.stats["traced_iterations"])
+                  and launched > 0, f"f32 kernel arm launched {launched}")
+        fn.close()
+    cpu = whisper_score_program(core, cfg, tree_map(lambda t: t.cpu(),
+                                                    params), B, S, T,
+                                optimize="safe", device="cpu")
+    t0 = time.perf_counter()
+    scores["cpu"] = whisper_score_call(cpu, cfg, 3, device="cpu")
+    cpu.close()
+    log(f"cross whisper scoring f32 on the CPU: one call in "
+        f"{time.perf_counter() - t0:.1f} s")
+    d_unfused = max(float(abs(a - b).max()) for a, b in
+                    zip(scores["kernel"][2:], scores["unfused"][2:]))
+    d_cpu = float(abs(scores["kernel"][3] - scores["cpu"]).max())
+    log(f"cross whisper scoring f32 (compiled calls): kernel vs unfused max "
+        f"abs diff {d_unfused:.3e}, kernel vs CPU {d_cpu:.3e} (tol "
+        f"{WHISPER_SCORE_TOL})")
+    check(d_unfused <= WHISPER_SCORE_TOL and d_cpu <= WHISPER_SCORE_TOL,
+          f"whisper f32 scores differ: {d_unfused:.3e}, {d_cpu:.3e}")
+    del params
+    release()
+
+
+def phase_cross(kernel_rows):
+    import torch
+    release()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    results, walls = {}, {}
+    t0 = time.perf_counter()
+    whisper_scoring(kernel_rows)
+    walls["whisper scoring"] = round(time.perf_counter() - t0, 1)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    for arch, layers, n, prompt, new in CROSS_SERVE:
+        t0 = time.perf_counter()
+        results[arch] = serve_cross(arch, layers, n, prompt, new)
+        walls[arch] = round(time.perf_counter() - t0, 1)
+    log("cross table: " + json.dumps(results))
+    for arch, arms in results.items():
+        a, b = arms["eager"], arms["captured"]
+        log(f"cross {arch}: TTFT eager {a['ttft_ms']} -> captured "
+            f"{b['ttft_ms']} ms, decode {a['decode_ms_per_step']} -> "
+            f"{b['decode_ms_per_step']} ms a step, busy {a['busy_share']} -> "
+            f"{b['busy_share']}, peak {a['peak_gib']} -> {b['peak_gib']} GiB")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in CROSS_EQ_LAYERS:
+        t0 = time.perf_counter()
+        cross_equality(arch)
+        walls[arch + " equality"] = round(time.perf_counter() - t0, 1)
+    log(f"cross walls (s): {json.dumps(walls)}")
+    release()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2746,9 +3546,10 @@ def main() -> int:
                 f"most {max((e[2] for e in entries), default=0)} bytes "
                 f"spill stores")
             for kname, regs, spill in entries:
-                # every rmsnorm and SSD kernel; paged and flash at the
-                # path widths (D 128 and 256) and the registry's groups
-                if name in ("rmsnorm", "ssd_scan") \
+                # every rmsnorm, SSD and flash kernel (whisper's D 64
+                # too); paged at the path widths (D 128 and 256) and the
+                # registry's groups
+                if name in ("rmsnorm", "ssd_scan", "flash_attention") \
                         or re.search(r"[<,](128|256)[,>]", kname) \
                         or not re.search(r"[<,]\d", kname):
                     log(f"    {kname}: {regs} registers, {spill} bytes "
@@ -2762,7 +3563,8 @@ def main() -> int:
                          rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
                          flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ),
                          ssd_kernel_row()])
-            rows.extend(family_paged_rows() + [flash_d256_row()])
+            rows.extend(family_paged_rows() + [flash_d256_row()]
+                        + flash_whisper_rows())
 
         profile_dir = (os.path.join(HERE, "chiprun_out") if args.profile
                        else None)
@@ -2779,6 +3581,7 @@ def main() -> int:
             ("train", phase_train),
             ("capture", phase_capture),
             ("families", lambda: phase_families(rows, profile_dir)),
+            ("cross", lambda: phase_cross(rows)),
         ]
         if args.profile:
             phases += [("profile", lambda: phase_profile(profile_dir)),

@@ -8,8 +8,10 @@ cache, mixed-length prompts) see serve/scheduler/.
     PYTHONPATH=src python examples/serve_demo_torch.py \\
         --arch deepseek-moe-16b --device cpu
 (the arch's reduced smoke config is served, with random weights from a
-seed; ``--device`` defaults to the CUDA card.  The VLM and audio archs
-arrive with the port's cross-attention slice.)
+seed; ``--device`` defaults to the CUDA card.  ``--arch
+llama-3.2-vision-90b`` passes seeded vision states as ``cross_states``;
+``--arch whisper-small`` seeded frame embeddings as ``frontend_embeds``,
+which the engine encodes once for the batch.)
 """
 
 import argparse
@@ -46,8 +48,17 @@ def main():
                     .astype(np.int32), max_new_tokens=args.max_new)
             for _ in range(args.batch)]
 
+    extras = {}
+    if cfg.family == "vlm":
+        extras["cross_states"] = torch.from_numpy(
+            rng.randn(args.batch, cfg.frontend_tokens, cfg.d_model)
+            .astype(np.float32)).to(dev, getattr(torch, cfg.dtype))
+    elif cfg.enc_layers:
+        extras["frontend_embeds"] = rng.randn(
+            args.batch, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+
     t0 = time.perf_counter()
-    out = engine.run_batch(reqs)
+    out = engine.run_batch(reqs, **extras)
     dt = time.perf_counter() - t0
 
     total_new = sum(len(r.out_tokens) for r in out)

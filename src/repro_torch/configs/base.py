@@ -16,11 +16,9 @@ transformer assembly (models/transformer.py).  Kinds:
 
 The schema is the reference's field for field, so a port config compares
 equal to its reference counterpart; field comments give the reference's
-meaning.  The port reads the attention, SSM (Mamba-2), MoE, RG-LRU,
-compute and remat fields (remat policies "full" and "dots"; ``moe_impl``
-"shard_map" raises until the parallel slice); the cross-attention and
-encoder fields wait for a later slice, and ``unroll`` has no effect (the
-port runs its loops in Python).
+meaning.  The port reads every field (remat policies "full" and "dots";
+``moe_impl`` "shard_map" raises until the parallel slice) but ``unroll``,
+which has no effect: the port runs its loops in Python.
 """
 
 from __future__ import annotations

@@ -1,10 +1,5 @@
 """Architecture registry + reduced smoke-test variants.
 
-The port carries the eight decoder architectures of the reference's
-registry; whisper-small and llama-3.2-vision-90b (cross-attention and the
-encoder) arrive with the port's cross-attention slice, and ``get_config``
-says so when asked for them.
-
 ``get_config(arch_id)`` returns the exact published configuration;
 ``smoke_config(arch_id)`` returns a reduced config of the same family
 (small width, few layers/experts, tiny vocab) for CPU smoke tests — the
@@ -16,9 +11,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (codeqwen15_7b, deepseek_moe_16b,
-                                 granite3_2b, llama3_8b, mamba2_130m,
-                                 mixtral_8x22b, qwen25_14b,
-                                 recurrentgemma_2b)
+                                 granite3_2b, llama3_8b, llama32_vision_90b,
+                                 mamba2_130m, mixtral_8x22b, qwen25_14b,
+                                 recurrentgemma_2b, whisper_small)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {
@@ -29,21 +24,16 @@ ARCHS = {
     "mixtral-8x22b": mixtral_8x22b.CONFIG,
     "deepseek-moe-16b": deepseek_moe_16b.CONFIG,
     "mamba2-130m": mamba2_130m.CONFIG,
+    "llama-3.2-vision-90b": llama32_vision_90b.CONFIG,
+    "whisper-small": whisper_small.CONFIG,
     "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
 }
 
 # archs with a sub-quadratic long-context path: long_500k runs for these
 LONG_CONTEXT_ARCHS = {"mixtral-8x22b", "mamba2-130m", "recurrentgemma-2b"}
 
-# the reference's archs that need cross-attention or an encoder
-LATER_ARCHS = ("llama-3.2-vision-90b", "whisper-small")
-
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in LATER_ARCHS:
-        raise NotImplementedError(
-            f"{arch} needs cross-attention or an encoder, which arrive with "
-            f"the port's cross-attention slice (ROADMAP.md Queue 1)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     cfg = ARCHS[arch]

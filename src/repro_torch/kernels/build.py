@@ -37,6 +37,22 @@ LOGS: Dict[str, str] = {}           # name -> nvcc output of its last build
 _RECORDING = threading.local()      # .rec: this thread's launches, or None
 
 
+# head dims the attention kernels are instantiated for; any other D up to
+# 256 that is a multiple of 8 runs in the next one, its extra columns
+# masked in the loads (csrc flash_attention.cu, paged_attention.cu)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def head_dim_instance(D: int, what: str) -> int:
+    """The instantiated head dim that runs D; raises, naming ``what`` (the
+    call's shapes), for any D the kernels do not take."""
+    if D <= 0 or D > HEAD_DIMS[-1] or D % 8:
+        raise ValueError(f"{what}: the kernel takes head dims up to "
+                         f"{HEAD_DIMS[-1]} that are multiples of 8, got "
+                         f"D={D}")
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
 def count_launch(wrapper) -> None:
     """One launch of ``wrapper``'s kernel: adds one to ``wrapper.launches``
     and to the calling thread's record while it has one open."""

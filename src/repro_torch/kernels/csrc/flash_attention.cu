@@ -10,8 +10,13 @@
 // in q's dtype.  A row that no key can reach (window > 0 and qpos >= Skv +
 // window - 1) gets the plain version's answer, the mean of v over all
 // keys, so its tile walks every KV tile; otherwise tiles wholly past the
-// diagonal or wholly before the window are skipped.  D in {16, 32, 64,
-// 128, 256}.
+// diagonal or wholly before the window are skipped.  Any head dim d <= 256
+// that is a multiple of 8 runs: D in {16, 32, 64, 128, 256} in its own
+// instantiation, any other d in the masked instantiation of the next size
+// (kMask), with q/k/v/out rows d values apart and the columns past d
+// zero-filled in the loads and never stored, so they add nothing to q . k;
+// the scale is d^-0.5, from the true d.  (A runtime d in every
+// instantiation slowed the exact ones by a few per cent.)
 //
 // Bound.  On the scoring path kernel.attention hands over q/k/v
 // [128, 1, 512, 128] bf16 causal (4 sequences x 32 heads, 512 tokens):
@@ -19,7 +24,11 @@
 // tensor-core peak (989 TFLOP/s) against 0.020 ms at 3.35 TB/s, so bytes
 // bound it.  At 67 TFLOP/s of f32 outside the tensor cores the same
 // products need 0.128 ms, which is why the bf16 path runs on the tensor
-// cores, and on wgmma, the only way to their full rate.
+// cores, and on wgmma, the only way to their full rate.  On whisper-small's
+// scoring path (4 audio x 12 heads, D = 64, no mask) the encoder's
+// [48, 1, 1500, 64] attention is bound by operations (27.6 GFLOP, 0.028
+// ms) and the cross-attention's 128 queries x 1500 keys by bytes (20 MB,
+// 0.006 ms).
 //
 // bf16 design (wgmma, FA2's load order).  One CTA of one warpgroup (4
 // warps) per (b*h, 64-query tile), each warp owning 16 query rows; the
@@ -109,12 +118,13 @@ constexpr size_t f32_smem_floats() {
   return (size_t)D * kQP + (size_t)D * kKP + (size_t)kBK * D + (size_t)kBK * kQP;
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int H,
-                 int Hkv, int Sq, int Skv, int causal, int window,
+                 int Hkv, int Sq, int Skv, int d_arg, int causal, int window,
                  float scale) {
+  const int d_true = kMask ? d_arg : D;     // the true head dim
   constexpr int kC = D / 16;                // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                         // [D][kQP]   scaled q, transposed
@@ -131,14 +141,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* kb = k + ((size_t)b * Hkv + hk) * Skv * D;
-  const float* vb = v + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* qb = q + (size_t)bh * Sq * d_true;
+  const float* kb = k + ((size_t)b * Hkv + hk) * Skv * d_true;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Skv * d_true;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int qp = q0 + r;
-    Qt[d * kQP + r] = qp < Sq ? qb[(size_t)qp * D + d] * scale : 0.f;
+    Qt[d * kQP + r] =
+        qp < Sq && d < d_true ? qb[(size_t)qp * d_true + d] * scale : 0.f;
   }
 
   int kv_lo, kv_hi;
@@ -160,9 +171,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int c = e / D, d = e - c * D;
       const int kp = k0 + c;
-      const bool ok = kp < Skv;
-      Kt[d * kKP + c] = ok ? kb[(size_t)kp * D + d] : 0.f;
-      Vs[e] = ok ? vb[(size_t)kp * D + d] : 0.f;
+      const bool ok = kp < Skv && d < d_true;
+      Kt[d * kKP + c] = ok ? kb[(size_t)kp * d_true + d] : 0.f;
+      Vs[e] = ok ? vb[(size_t)kp * d_true + d] : 0.f;
     }
     __syncthreads();
 
@@ -237,9 +248,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    float* orow = out + ((size_t)bh * Sq + qp) * D;
+    float* orow = out + ((size_t)bh * Sq + qp) * d_true;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) orow[tx + 16 * c] = acc[i][c] * inv_l;
+    for (int c = 0; c < kC; ++c)
+      if (tx + 16 * c < d_true) orow[tx + 16 * c] = acc[i][c] * inv_l;
   }
 }
 
@@ -347,21 +359,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Rows [row0, row0 + 64) of a [rows, D] bf16 array into a tile of
-// [DP / 64][64][64] (DP = max(D, 64)) in the 128-byte swizzled layout:
+// Rows [row0, row0 + 64) of a [rows, d] bf16 array (d <= D) into a tile
+// of [DP / 64][64][64] (DP = max(D, 64)) in the 128-byte swizzled layout:
 // 16-byte chunk c of row r of a column block lands at chunk c ^ (r & 7).
-// Rows past ``rows`` and columns past D are zero-filled.
+// Rows past ``rows`` and columns past d are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int rows, int tid) {
+                                          int rows, int d, int tid) {
   constexpr int kChunks = (D < 64 ? 64 : D) / 8;
 #pragma unroll
   for (int c = tid; c < 64 * kChunks; c += 128) {
     const int r = c / kChunks, ch = c - r * kChunks;
     const bool row_ok = row0 + r < rows;
-    const bool ok = row_ok && ch < D / 8;
+    const bool ok = row_ok && ch < d / 8;
     cp_async16(dst + (ch >> 3) * 4096 + r * 64 + (((ch & 7) ^ (r & 7)) << 3),
-               src + (size_t)(row_ok ? row0 + r : 0) * D + (ok ? ch * 8 : 0),
+               src + (size_t)(row_ok ? row0 + r : 0) * d + (ok ? ch * 8 : 0),
                ok);
   }
 }
@@ -372,12 +384,13 @@ constexpr size_t wg_smem_bytes() {
   return sizeof(bf16) * 3 * 64 * (D < 64 ? 64 : D) + 1024;
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(128, D == 256 ? 1 : 3)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ out, int H,
-                  int Hkv, int Sq, int Skv, int causal, int window,
-                  float scale_log2) {
+                  int Hkv, int Sq, int Skv, int d_arg, int causal,
+                  int window, float scale_log2) {
+  const int d_true = kMask ? d_arg : D;     // the true head dim
   constexpr int DP = D < 64 ? 64 : D;       // head dim in shared memory
   constexpr int kTile = 64 * DP;            // elements of a 64-row tile
   constexpr int kNO = DP / 8;               // 8-column n-tiles of O
@@ -403,17 +416,17 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t4 = lane & 3;                  // thread within the quad
   const int row_a = q0 + warp * 16 + g;     // rows row_a and row_a + 8
 
-  const bf16* qb = q + (size_t)bh * Sq * D;
-  const bf16* kb = k + ((size_t)b * Hkv + hk) * Skv * D;
-  const bf16* vb = v + ((size_t)b * Hkv + hk) * Skv * D;
+  const bf16* qb = q + (size_t)bh * Sq * d_true;
+  const bf16* kb = k + ((size_t)b * Hkv + hk) * Skv * d_true;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * Skv * d_true;
 
   int kv_lo, kv_hi;
   kv_range(q0, q_last, Skv, causal, window, &kv_lo, &kv_hi);
   const int t_lo = kv_lo / kBN;
   const int t_hi = (kv_hi + kBN - 1) / kBN;
 
-  load_tile<D>(sQ, qb, q0, Sq, tid);
-  load_tile<D>(sK, kb, t_lo * kBN, Skv, tid);
+  load_tile<D>(sQ, qb, q0, Sq, d_true, tid);
+  load_tile<D>(sK, kb, t_lo * kBN, Skv, d_true, tid);
   cp_async_commit();
 
   float o[kNO][4];
@@ -426,7 +439,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_all();                    // K(t) has landed
     fence_async_smem();
     __syncthreads();                        // and every warp is done with V
-    load_tile<D>(sV, vb, t * kBN, Skv, tid);
+    load_tile<D>(sV, vb, t * kBN, Skv, d_true, tid);
     cp_async_commit();
 
     // S = Q . K^T: 64 x 64 f32, both operands K-major in shared memory; a
@@ -501,7 +514,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_async_smem();
     __syncthreads();                        // and every warp is done with K
     if (t + 1 < t_hi) {
-      load_tile<D>(sK, kb, (t + 1) * kBN, Skv, tid);
+      load_tile<D>(sK, kb, (t + 1) * kBN, Skv, d_true, tid);
       cp_async_commit();
     }
 
@@ -561,42 +574,55 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks, ch = c - r * kChunks;
     const int qp = q0 + warp * 16 + r;
-    if (qp < Sq)
-      *reinterpret_cast<uint4*>(out + ((size_t)bh * Sq + qp) * D + ch * 8) =
+    if (qp < Sq && ch < d_true / 8)
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * Sq + qp) * d_true +
+                                ch * 8) =
           *reinterpret_cast<const uint4*>(so + r * kRow + ch * 8);
   }
 }
 
 // --------------------------------------------------------------------------
 
-template <int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int B, int H, int Hkv, int Sq, int Skv, int causal,
-                     int window, int dtype, cudaStream_t stream) {
+// D: the instantiation (the template head dim); d: the true head dim
+template <int D, bool kMask>
+cudaError_t launch_dm(const void* q, const void* k, const void* v, void* out,
+                      int B, int H, int Hkv, int Sq, int Skv, int d,
+                      int causal, int window, int dtype, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  const double scale = 1.0 / sqrt((double)D);
+  const double scale = 1.0 / sqrt((double)d);
   cudaError_t err;
   // above 48 KB a CTA's dynamic shared memory must be asked for
   if (dtype == 0) {
     const size_t smem = sizeof(float) * f32_smem_floats<D>();
-    err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+    err = cudaFuncSetAttribute(flash_f32_kernel<D, kMask>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+    flash_f32_kernel<D, kMask><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, H,
-        Hkv, Sq, Skv, causal, window, (float)scale);
+        Hkv, Sq, Skv, d, causal, window, (float)scale);
   } else {
     const size_t smem = wg_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bf16_kernel<D, kMask>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bf16_kernel<D><<<grid, 128, smem, stream>>>(
+    flash_bf16_kernel<D, kMask><<<grid, 128, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, Hkv,
-        Sq, Skv, causal, window, (float)(scale * 1.4426950408889634));
+        Sq, Skv, d, causal, window, (float)(scale * 1.4426950408889634));
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
+                     int B, int H, int Hkv, int Sq, int Skv, int d,
+                     int causal, int window, int dtype, cudaStream_t stream) {
+  if (d == D)
+    return launch_dm<D, false>(q, k, v, out, B, H, Hkv, Sq, Skv, d, causal,
+                               window, dtype, stream);
+  return launch_dm<D, true>(q, k, v, out, B, H, Hkv, Sq, Skv, d, causal,
+                            window, dtype, stream);
 }
 
 }  // namespace
@@ -604,22 +630,20 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launch (0 on success).  The bf16
 // path reads and writes 16-byte vectors: q, k, v and out must be 16-byte
-// aligned (the wrapper sees to it).
+// aligned (the wrapper sees to it).  D: any multiple of 8 up to 256.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int H,
                                      int Hkv, int Sq, int Skv, int D,
                                      int causal, int window, int dtype,
                                      void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
-      window < 0 || (Sq + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
+      window < 0 || (Sq + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1) ||
+      D <= 0 || D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return (int)launch_d<16>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
-    case 32: return (int)launch_d<32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
-    case 64: return (int)launch_d<64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
-    case 128: return (int)launch_d<128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
-    case 256: return (int)launch_d<256>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window, dtype, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 16) return (int)launch_d<16>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, dtype, st);
+  if (D <= 32) return (int)launch_d<32>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, dtype, st);
+  if (D <= 64) return (int)launch_d<64>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, dtype, st);
+  if (D <= 128) return (int)launch_d<128>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, dtype, st);
+  return (int)launch_d<256>(q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, dtype, st);
 }

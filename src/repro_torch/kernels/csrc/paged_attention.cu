@@ -9,7 +9,15 @@
 // are masked (-1e30 inside a visited block, as the reference does); blocks
 // that hold no such position are never read.  Accumulation is f32; the
 // output is written in q's dtype.  Rows must have valid[b] >= 1 (a row
-// with none gets zeros).  D in {16, 32, 64, 128, 256}; any group size
+// with none gets zeros).  Any head dim d <= 256 that is a multiple of 8
+// runs: D in {16, 32, 64, 128, 256} in the instantiations below, any other
+// d in a padded instantiation (kExact false) of the next size (the
+// template D): the arena, q and out rows are read d values apart, the
+// shared-memory rows keep D, the columns past d are zero-filled in the
+// copies and never stored, the combine is its masked instantiation, and
+// the scale is d^-0.5; the arena is never padded or copied.  (A runtime d
+// in the exact instantiations slowed llama's row 3-6 % and the windowed
+// families' 7-8 %.)  Any group size
 // G = Hq/Hkv up to 16: G in {1, 2, 4, 5, 6, 8, 10} has its own
 // instantiation, with G a compile-time constant (the registry's groups
 // are 1, 4, 5, 6, 8 and 10), and any other G runs in a padded
@@ -79,6 +87,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// 16-byte async copy; zero-fills the destination when !ok (src unread)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -133,26 +149,33 @@ __host__ __device__ constexpr bool exact_group(int G) {
   return G == 1 || G == 2 || G == 4 || G == 5 || G == 6 || G == 8 ||
          G == 10;
 }
-// The instantiated group that runs G query heads a KV head: G itself
-// where it has an instantiation, else the padded one of 4, 8 or 16 rows;
-// 0 past 16.
+// The padded instantiation of 4, 8 or 16 rows that runs G query heads a
+// KV head (any G at a head dim between the instantiated ones); 0 past 16.
+__host__ __device__ constexpr int padded_rows(int G) {
+  return G <= 4 ? 4 : G <= 8 ? 8 : G <= 16 ? 16 : 0;
+}
+// The instantiated group that runs G query heads a KV head at an
+// instantiated head dim: G itself where it has an instantiation, else
+// padded_rows(G).
 __host__ __device__ constexpr int padded_group(int G) {
-  return exact_group(G) ? G : G <= 4 ? 4 : G <= 8 ? 8 : G <= 16 ? 16 : 0;
+  return exact_group(G) ? G : padded_rows(G);
 }
 
 // The split kernels' body.  GP: the instantiated group (padded_group(G)).
 // kExact: GP is the real group, a compile-time constant; otherwise g_real
 // query heads a KV head, and rows g >= g_real compute on a zero q and are
-// never written.  The partials are laid out by the real group, as the
-// combine kernel reads them.
+// never written, and the true head dim d_arg <= D is a runtime value
+// (kExact: d = D).  The partials are laid out by the real group and the
+// instantiated D, as the combine kernel reads them.
 template <typename T, int D, int GP, bool kExact>
 __device__ __forceinline__ void
 paged_split(const T* __restrict__ q, const T* __restrict__ kp,
             const T* __restrict__ vp, const int32_t* __restrict__ bt,
             const int32_t* __restrict__ valid, T* __restrict__ out,
-            float* __restrict__ part, int Hkv, int g_real, int bs, int nbps,
-            int bps, int window, float scale) {
+            float* __restrict__ part, int Hkv, int g_real, int d_arg, int bs,
+            int nbps, int bps, int window, float scale) {
   const int G = kExact ? GP : g_real;
+  const int d = kExact ? D : d_arg;
   constexpr int kVec = 16 / sizeof(T);      // values per 16-byte chunk
   constexpr int kCh = D / kVec;             // 16-byte chunks per token row
   constexpr int kL = kCh < 32 ? kCh : 32;   // lanes per token row
@@ -178,7 +201,8 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = tid >> 5;
   const int ch = lane % kL;                 // this lane's first chunk
   const int Hq = Hkv * G;
-  T* orow = out + ((size_t)b * Hq + (size_t)h * G) * D;
+  const int dch = d / kVec;                 // 16-byte chunks of a true row
+  T* orow = out + ((size_t)b * Hq + (size_t)h * G) * d;
   float* pml = part + (((size_t)b * Hkv + h) * nsplit + s) * 2 * G;   // m, l
   float* pacc = part + (size_t)gridDim.z * Hkv * nsplit * 2 * G +
                 (((size_t)b * Hkv + h) * nsplit + s) * G * D;
@@ -197,16 +221,17 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int i = 0; i < kVec; ++i)
         qf[g][c * kVec + i] =
-            g < G ? to_f32(q[((size_t)b * Hq + h * G + g) * D +
-                             (ch + c * kL) * kVec + i]) * scale
-                  : 0.f;
+            g < G && (kExact || ch + c * kL < dch)
+                ? to_f32(q[((size_t)b * Hq + h * G + g) * d +
+                           (ch + c * kL) * kVec + i]) * scale
+                : 0.f;
   int j_lo, j_hi;
   live_blocks(vl, bs, nbps, window, &j_lo, &j_hi);
   const int j0 = max(jb, j_lo);
   const int j1 = min(jb + bps, j_hi);
   if (j0 >= j1) {                           // an empty split
     if (nsplit == 1) {
-      for (int e = tid; e < G * D; e += kThreads) store(orow + e, 0.f);
+      for (int e = tid; e < G * d; e += kThreads) store(orow + e, 0.f);
     } else if (tid < G) {
       pml[tid] = -INFINITY;
       pml[G + tid] = 0.f;
@@ -217,19 +242,35 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   if (tid < bps) blk[tid] = my_blk;
   __syncthreads();
   blk += j0 - jb;                           // blk[i]: the block of column j0 + i
-  const size_t tok_stride = (size_t)Hkv * D;
+  // columns past d are zero-filled: K's would meet q's zeros, but the
+  // shared memory is not zero, and 0 * NaN is NaN
+  const size_t tok_stride = (size_t)Hkv * d;
   for (int c = tid; c < ntok * kCh; c += kThreads) {
     const int t = c / kCh, cc = c - t * kCh;
     const int r = t % bs;
-    cp_async16(Ks + (size_t)t * D + cc * kVec,
-               kp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+    if constexpr (kExact) {
+      cp_async16(Ks + (size_t)t * D + cc * kVec,
+                 kp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+    } else {
+      const bool ok = cc < dch;
+      cp_async16_zfill(Ks + (size_t)t * D + cc * kVec,
+                       kp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * d + (ok ? cc * kVec : 0),
+                       ok);
+    }
   }
   cp_async_commit();
   for (int c = tid; c < ntok * kCh; c += kThreads) {
     const int t = c / kCh, cc = c - t * kCh;
     const int r = t % bs;
-    cp_async16(Vs + (size_t)t * D + cc * kVec,
-               vp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+    if constexpr (kExact) {
+      cp_async16(Vs + (size_t)t * D + cc * kVec,
+                 vp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * D + cc * kVec);
+    } else {
+      const bool ok = cc < dch;
+      cp_async16_zfill(Vs + (size_t)t * D + cc * kVec,
+                       vp + ((size_t)blk[t / bs] * bs + r) * tok_stride + (size_t)h * d + (ok ? cc * kVec : 0),
+                       ok);
+    }
   }
   cp_async_commit();
   cp_async_wait<1>();                       // K has landed; V in flight
@@ -339,10 +380,13 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += red[w * GP * D + e];
-    if (nsplit == 1) {
+    if (nsplit > 1) {
+      pacc[e] = a;
+    } else if constexpr (kExact) {
       store(orow + e, a / fmaxf(l_s[e / D], 1e-30f));
     } else {
-      pacc[e] = a;
+      const int g = e / D, col = e - g * D;
+      if (col < d) store(orow + g * d + col, a / fmaxf(l_s[g], 1e-30f));
     }
   }
   if (nsplit > 1 && tid < G) {
@@ -357,9 +401,9 @@ __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int32_t* __restrict__ bt,
                    const int32_t* __restrict__ valid, T* __restrict__ out,
-                   float* __restrict__ part, int Hkv, int bs, int nbps,
+                   float* __restrict__ part, int Hkv, int d, int bs, int nbps,
                    int bps, int window, float scale) {
-  paged_split<T, D, G, true>(q, kp, vp, bt, valid, out, part, Hkv, G, bs,
+  paged_split<T, D, G, true>(q, kp, vp, bt, valid, out, part, Hkv, G, d, bs,
                              nbps, bps, window, scale);
 }
 
@@ -371,21 +415,23 @@ paged_split_padded_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const int32_t* __restrict__ bt,
                           const int32_t* __restrict__ valid,
                           T* __restrict__ out, float* __restrict__ part,
-                          int Hkv, int g_real, int bs, int nbps, int bps,
-                          int window, float scale) {
+                          int Hkv, int g_real, int d, int bs, int nbps,
+                          int bps, int window, float scale) {
   paged_split<T, D, GP, false>(q, kp, vp, bt, valid, out, part, Hkv, g_real,
-                               bs, nbps, bps, window, scale);
+                               d, bs, nbps, bps, window, scale);
 }
 
 // Merge a row's split partials: one CTA per (KV head, row).  The
 // weights w_s = exp(m_s - M) per (split, query head) first, one warp per
 // head (an empty split gets w_s = 0, and a row with no live split
 // M = -inf and zeros); then each thread merges one 16-byte column chunk
-// over the splits.
-template <typename T>
+// over the splits.  D: the partials' row (the instantiated head dim); d:
+// the output's, the true one (kMaskD; otherwise d = D).
+template <typename T, bool kMaskD>
 __global__ void __launch_bounds__(kThreads)
 paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                     int B, int Hkv, int G, int D, int nsplit) {
+                     int B, int Hkv, int G, int D, int d_arg, int nsplit) {
+  const int d = kMaskD ? d_arg : D;
   extern __shared__ float wsm[];            // [nsplit][G] weights, [G] 1/den
   float* inv_den = wsm + nsplit * G;
   const int h = blockIdx.x;
@@ -412,9 +458,10 @@ paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
     if (lane == 0) inv_den[g] = 1.f / fmaxf(den, 1e-30f);
   }
   __syncthreads();
-  T* orow = out + ((size_t)b * Hkv * G + (size_t)h * G) * D;
+  T* orow = out + ((size_t)b * Hkv * G + (size_t)h * G) * d;
   for (int e = threadIdx.x * 4; e < G * D; e += kThreads * 4) {
-    const int g = e / D;
+    const int g = e / D, col = e - g * D;
+    if (kMaskD && col >= d) continue;       // d % 8 == 0: a chunk is all in
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
     // every split's chunk is loaded, live or not, so the loads issue
     // together; an empty split's (unwritten) chunk is selected away, so
@@ -428,21 +475,22 @@ paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
       }
     }
     const float r = inv_den[g];
-    store(orow + e, num.x * r);
-    store(orow + e + 1, num.y * r);
-    store(orow + e + 2, num.z * r);
-    store(orow + e + 3, num.w * r);
+    T* o = kMaskD ? orow + g * d + col : orow + e;
+    store(o, num.x * r);
+    store(o + 1, num.y * r);
+    store(o + 2, num.z * r);
+    store(o + 3, num.w * r);
   }
 }
 
 template <typename T, int D, int GP, bool kExact>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* valid, void* out, void* part,
-                     int B, int Hkv, int G, int bs, int nbps, int bps,
+                     int B, int Hkv, int G, int d, int bs, int nbps, int bps,
                      int nsplit, int window, cudaStream_t stream) {
   const size_t smem = split_smem_bytes<T>(D, GP, bs, bps);
   const dim3 grid(nsplit, Hkv, B);
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)d);
   // above 48 KB a CTA's dynamic shared memory must be asked for
   cudaError_t err;
   if constexpr (kExact) {
@@ -452,7 +500,7 @@ cudaError_t launch_g(const void* q, const void* kp, const void* vp,
     if (err != cudaSuccess) return err;
     paged_split_kernel<T, D, GP><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
-        (const int32_t*)valid, (T*)out, (float*)part, Hkv, bs, nbps, bps,
+        (const int32_t*)valid, (T*)out, (float*)part, Hkv, d, bs, nbps, bps,
         window, scale);
   } else {
     err = cudaFuncSetAttribute(paged_split_padded_kernel<T, D, GP>,
@@ -461,26 +509,32 @@ cudaError_t launch_g(const void* q, const void* kp, const void* vp,
     if (err != cudaSuccess) return err;
     paged_split_padded_kernel<T, D, GP><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
-        (const int32_t*)valid, (T*)out, (float*)part, Hkv, G, bs, nbps, bps,
-        window, scale);
+        (const int32_t*)valid, (T*)out, (float*)part, Hkv, G, d, bs, nbps,
+        bps, window, scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  paged_combine_kernel<T><<<dim3(Hkv, B), kThreads,
-                            sizeof(float) * (size_t)(nsplit + 1) * G, stream>>>(
-      (const float*)part, (T*)out, B, Hkv, G, D, nsplit);
+  const dim3 cgrid(Hkv, B);
+  const size_t csmem = sizeof(float) * (size_t)(nsplit + 1) * G;
+  if (d == D)
+    paged_combine_kernel<T, false><<<cgrid, kThreads, csmem, stream>>>(
+        (const float*)part, (T*)out, B, Hkv, G, D, d, nsplit);
+  else
+    paged_combine_kernel<T, true><<<cgrid, kThreads, csmem, stream>>>(
+        (const float*)part, (T*)out, B, Hkv, G, D, d, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* valid, void* out, void* part,
-                     int B, int Hkv, int G, int bs, int nbps, int bps,
+                     int B, int Hkv, int G, int d, int bs, int nbps, int bps,
                      int nsplit, int window, cudaStream_t stream) {
 #define REPRO_PAGED_GROUP(GP, EXACT)                                        \
   return launch_g<T, D, GP, EXACT>(q, kp, vp, bt, valid, out, part, B, Hkv, \
-                                   G, bs, nbps, bps, nsplit, window, stream);
-  if (exact_group(G)) {
+                                   G, d, bs, nbps, bps, nsplit, window,     \
+                                   stream);
+  if (exact_group(G) && d == D) {
     switch (G) {
       case 1: REPRO_PAGED_GROUP(1, true)
       case 2: REPRO_PAGED_GROUP(2, true)
@@ -491,7 +545,8 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp,
       case 10: REPRO_PAGED_GROUP(10, true)
     }
   }
-  switch (padded_group(G)) {
+  // another group, or another head dim: the padded instantiations
+  switch (d == D ? padded_group(G) : padded_rows(G)) {
     case 4: REPRO_PAGED_GROUP(4, false)
     case 8: REPRO_PAGED_GROUP(8, false)
     case 16: REPRO_PAGED_GROUP(16, false)
@@ -503,23 +558,21 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp,
 template <typename T>
 cudaError_t launch_t(const void* q, const void* kp, const void* vp,
                      const void* bt, const void* valid, void* out, void* part,
-                     int B, int Hkv, int G, int D, int bs, int nbps, int bps,
+                     int B, int Hkv, int G, int d, int bs, int nbps, int bps,
                      int nsplit, int window, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_d<T, 16>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
-    case 32: return launch_d<T, 32>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
-    case 64: return launch_d<T, 64>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
-    case 128: return launch_d<T, 128>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
-    case 256: return launch_d<T, 256>(q, kp, vp, bt, valid, out, part, B, Hkv, G, bs, nbps, bps, nsplit, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (d <= 16) return launch_d<T, 16>(q, kp, vp, bt, valid, out, part, B, Hkv, G, d, bs, nbps, bps, nsplit, window, stream);
+  if (d <= 32) return launch_d<T, 32>(q, kp, vp, bt, valid, out, part, B, Hkv, G, d, bs, nbps, bps, nsplit, window, stream);
+  if (d <= 64) return launch_d<T, 64>(q, kp, vp, bt, valid, out, part, B, Hkv, G, d, bs, nbps, bps, nsplit, window, stream);
+  if (d <= 128) return launch_d<T, 128>(q, kp, vp, bt, valid, out, part, B, Hkv, G, d, bs, nbps, bps, nsplit, window, stream);
+  return launch_d<T, 256>(q, kp, vp, bt, valid, out, part, B, Hkv, G, d, bs, nbps, bps, nsplit, window, stream);
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // bps blocks per split, nsplit = ceil(nbps / bps) splits; part: f32
-// scratch of B * Hkv * nsplit * G * (2 + D) values when nsplit > 1.  K/V
+// scratch of B * Hkv * nsplit * G * (2 + DI) values when nsplit > 1, DI
+// the instantiated head dim that runs D (any multiple of 8 up to 256).  K/V
 // are read as 16-byte vectors: kp and vp must be 16-byte aligned.  One
 // call launches the split kernel and, when nsplit > 1, the combine kernel.
 // Returns cudaGetLastError() after the launches (0 on success).
@@ -532,6 +585,7 @@ extern "C" int repro_paged_attention(const void* q, const void* kp,
   if (B <= 0 || Hkv <= 0 || bs <= 0 || nbps <= 0 || bps <= 0 ||
       bps > kThreads || nsplit != (nbps + bps - 1) / bps || nsplit > 65535 ||
       Hkv > 65535 || B > 65535 || G <= 0 || padded_group(G) == 0 ||
+      D <= 0 || D > 256 || D % 8 ||
       (nsplit + 1) * G > 12288 ||
       (nsplit > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;

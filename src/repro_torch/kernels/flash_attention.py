@@ -11,7 +11,10 @@ tensor cores (``wgmma`` on 64-key tiles that ``cp.async`` copies into
 shared memory) and rounds P to bf16 before P·V, so it matches the plain
 version within the bf16 tolerance (2e-2), not bit for bit; float32 stays
 exact f32 on the CUDA cores.  Ragged tails are masked in the kernel, so
-every length the reference accepts works.
+every length the reference accepts works, and so is any head dim D <= 256
+that is a multiple of 8: it runs in the instantiation of the next size in
+``build.HEAD_DIMS``, the columns past D zero-filled in the loads and
+never stored, with the scale D^-0.5 of the true D.
 
 The wrapper checks device, dtypes and shapes and raises on anything the
 kernel does not take.  A CUDA tensor launches the kernel (or raises); a
@@ -31,11 +34,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, head_dim_instance
 from repro_torch.kernels.ref import ref_attention
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_TILE = 64                         # query rows per CTA (csrc kBQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,9 +90,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, "
-                         f"got {D}")
+    head_dim_instance(D, f"flash_attention q {tuple(q.shape)}, kv "
+                         f"{tuple(k.shape)}")
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")
     if -(-Sq // Q_TILE) > 65535:

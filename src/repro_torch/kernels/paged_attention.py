@@ -11,10 +11,14 @@ head, row) reads the row's table itself, copies only the blocks that hold
 valid positions into shared memory and runs an f32 softmax over them, and
 a second kernel merges each row's partials.  Rows shorter than ``nbps``
 blocks point their tail table entries at the trash block 0; those
-positions are masked and never read.  D in ``HEAD_DIMS``; any group
-G = Hq/Hkv up to 16 runs: in its own instantiation where ``GROUPS`` has
-one (G a compile-time constant there), otherwise padded to one of
-``PADDED_GROUPS`` (:func:`padded_group`).
+positions are masked and never read.  Any group G = Hq/Hkv up to 16
+and any head dim D <= 256 that is a multiple of 8 run: G in ``GROUPS``
+at D in ``build.HEAD_DIMS`` in their own instantiation (G and D
+compile-time constants there), any other pair in a padded instantiation
+of the next size in ``PADDED_GROUPS`` and ``build.HEAD_DIMS``
+(:func:`padded_group`), its extra query rows computing on zeros and never
+written, its extra columns zero-filled in the copies into shared memory
+and never stored: the arena is never padded or copied.
 
 The wrapper checks device, dtype, shapes and contiguity and raises on
 anything the kernel does not take.  It never reads a device tensor on the
@@ -33,11 +37,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, head_dim_instance
 from repro_torch.kernels.ref import ref_paged_attention
 
 NAME = "paged_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = (1, 2, 4, 5, 6, 8, 10)      # csrc exact_group instantiations
 PADDED_GROUPS = (4, 8, 16)           # csrc instantiations for other G
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,12 +50,13 @@ MIN_CTAS = 2 * 132                  # two CTAs for each of the H100's SMs
 _WARPS = 4                          # csrc kWarps
 
 
-def padded_group(G: int) -> int:
+def padded_group(G: int, exact_dim: bool = True) -> int:
     """The instantiated group that runs G query heads a KV head (csrc
-    padded_group): G where it is in ``GROUPS``, else the next larger of
-    ``PADDED_GROUPS``, whose extra query rows compute on zeros and are
-    never written."""
-    if G in GROUPS:
+    padded_group): G where it is in ``GROUPS``, else (or at a head dim
+    between the instantiated ones, ``exact_dim`` False: csrc padded_rows)
+    the next larger of ``PADDED_GROUPS``, whose extra query rows compute
+    on zeros and are never written."""
+    if G in GROUPS and exact_dim:
         return G
     for gp in PADDED_GROUPS:
         if 0 < G <= gp:
@@ -126,12 +130,11 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
         raise TypeError(f"paged_attention takes float32 or bfloat16 q/kp/vp "
                         f"of one dtype, got {q.dtype}/{kp.dtype}/{vp.dtype}")
     G = Hq // Hkv
-    if D not in HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel takes D in {HEAD_DIMS}, "
-                         f"got D={D} (Hq={Hq}, Hkv={Hkv})")
-    gp = padded_group(G)
+    DI = head_dim_instance(D, f"paged_attention q {tuple(q.shape)}, "
+                              f"arena {tuple(kp.shape)}")
+    gp = padded_group(G, DI == D)
     nsplit, bps = split_plan(B, Hkv, nbps, bs)
-    smem = split_smem_bytes(D, gp, bs, bps, q.element_size())
+    smem = split_smem_bytes(DI, gp, bs, bps, q.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"block size {bs} needs {smem} bytes of shared "
                          f"memory per CTA, more than the kernel's "
@@ -146,7 +149,8 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
     valid = valid.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     # the split partials: (m, l) per query head, then the f32 accumulators
-    part = (torch.empty(B * Hkv * nsplit * G * (2 + D), dtype=torch.float32,
+    # (rows of the instantiated head dim)
+    part = (torch.empty(B * Hkv * nsplit * G * (2 + DI), dtype=torch.float32,
                         device=q.device) if nsplit > 1 else None)
     err = _entry()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                    bt.data_ptr(), valid.data_ptr(), out.data_ptr(),

@@ -22,7 +22,10 @@ NEG_INF = -1e30
 # risky.  ATTN_SWEEP holds what the reference's Pallas kernel runs in
 # interpret mode on the CPU at a test's pace; CARD_ONLY_ATTN holds ragged
 # shapes whose interpret-mode grids (blocks halved to 1 or 2 rows) are too
-# slow there.
+# slow there, head dims between the instantiated ones (80 and 96 run in
+# the D = 128 kernels, their extra columns masked), and whisper-small's
+# two attentions with no mask, cut to few heads: the encoder's over its
+# 1500 frames and the decoder's cross-attention (128 queries, 1500 keys).
 ATTN_SWEEP = [
     # (B, H, Hkv, Sq, Skv, D, causal, window)
     (1, 4, 4, 128, 128, 64, True, 0),
@@ -52,6 +55,12 @@ CARD_ONLY_ATTN = [
     (1, 10, 1, 2100, 2100, 256, True, 2048),   # recurrentgemma-2b heads,
                                                # its window bites, ragged
     (2, 4, 2, 130, 77, 256, False, 0),         # D 256, ragged, Sq > Skv
+    (2, 4, 2, 130, 200, 80, True, 0),          # D 80, causal, ragged
+    (1, 2, 1, 100, 100, 80, True, 32),         # D 80, window
+    (1, 4, 4, 64, 300, 96, False, 0),          # D 96, Sq != Skv
+    (2, 2, 2, 77, 77, 96, True, 16),           # D 96, ragged, window
+    (1, 2, 2, 1500, 1500, 64, False, 0),       # whisper encoder
+    (2, 2, 2, 128, 1500, 64, False, 0),        # whisper cross-attention
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -63,8 +72,9 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # shorter and longer than a split, G in {1, 2, 4, 8}, bs in {8, 16, 32},
 # and a one-block table, whose single split writes the output itself;
 # then the registry's other groups (5: qwen2.5-14b, 6: mixtral-8x22b, 10
-# with D 256: recurrentgemma-2b) with a row that window 100 cuts, and
-# groups that run padded (3 in 4, 7 in 8, 12 in 16) and 16 at D 256.
+# with D 256: recurrentgemma-2b) with a row that window 100 cuts, groups
+# that run padded (3 in 4, 7 in 8, 12 in 16) and 16 at D 256, and head dims
+# between the instantiated ones (80 and 96, in the D = 128 kernels).
 # PAGED_SERVING is the serving path's own shape (llama3-8b heads, 8 slots
 # x 512 tokens in 16-token pages), PAGED_LONG a longer cache.
 PAGED_SWEEP = [
@@ -82,6 +92,8 @@ PAGED_SWEEP = [
     (1, 1, 16, 256, 16, 4, 5, [60]),
     (2, 1, 3, 256, 8, 2, 5, [3, 16]),
     (1, 1, 12, 64, 8, 2, 3, [10]),
+    (2, 2, 4, 80, 16, 4, 9, [5, 50]),
+    (3, 1, 5, 96, 8, 8, 25, [1, 33, 64]),
 ]
 PAGED_WINDOWS = (0, 6, 100)
 PAGED_SERVING = (8, 8, 4, 128, 16, 32, 257,

@@ -1,13 +1,12 @@
-"""Attention: GQA / MQA, causal, sliding-window, with dense and paged KV
-caches.  ``chunked_attention`` is the blockwise online-softmax path (peak
-memory O(Bq*Bk) instead of O(S^2)); paged single-token decode goes through
-the hand-written paged-attention kernel when the kernel-substituted decode
-op enables it (:func:`paged_kernel`).
+"""Attention: GQA / MQA, causal, sliding-window, local and cross, with
+dense and paged KV caches.  ``chunked_attention`` is the blockwise
+online-softmax path (peak memory O(Bq*Bk) instead of O(S^2)); paged
+single-token decode goes through the hand-written paged-attention kernel
+when the kernel-substituted decode op enables it (:func:`paged_kernel`).
 
 Caches are never written in place: the engine keeps iteration-start
 buffers for rollback, so each update makes a new tensor (in-place reuse
 comes with buffer donation, under the reference's legality rules).
-Cross-attention and encoder blocks arrive with the families that use them.
 """
 
 from __future__ import annotations
@@ -148,25 +147,29 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
     cache: None (prefill-no-cache) or dict with k/v [B,Smax,Hkv,D] and
     ``len`` (filled length: an int for lock-step batches, a [B] tensor for
     slot-pooled serving), or the paged form kp/vp + block table ``bt``.
+    When ``cross_states`` [B, Skv, d] is given, k/v come from those
+    encoder / vision states: no rope, no cache read or write, no causal
+    mask (the reference re-projects them at every decode step).
     """
-    if cross_states is not None:
-        raise NotImplementedError(
-            "cross-attention arrives with the port's VLM/audio families")
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = dense(x, p["wq"], p.get("bq")).reshape(B, S, H, D)
-    k = dense(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, D)
-    v = dense(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, D)
+    kv_src = cross_states if cross_states is not None else x
+    Skv = kv_src.shape[1]
+    k = dense(kv_src, p["wk"], p.get("bk")).reshape(B, Skv, Hkv, D)
+    v = dense(kv_src, p["wv"], p.get("bv")).reshape(B, Skv, Hkv, D)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    if use_rope:
+    if use_rope and cross_states is None:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, torch.arange(S, device=x.device)[None, :]
+        k = rope(k, torch.arange(Skv, device=x.device)[None, :]
                  if cache is None else positions, cfg.rope_theta)
 
     new_cache = None
+    if cross_states is not None:
+        cache = None                    # cross K/V are never cached
     if cache is not None and "kp" in cache:
         # paged decode: K/V live in a flat block arena addressed through
         # the per-slot block table ``bt`` [B, nbps].  The new K/V lands at
@@ -230,8 +233,10 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
                                     q_block=cfg.q_block,
                                     kv_block=cfg.kv_block)
     else:
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+        out = chunked_attention(q, k, v,
+                                causal=causal and cross_states is None,
+                                window=window, q_block=cfg.q_block,
+                                kv_block=cfg.kv_block)
 
     out = dense(out.reshape(B, S, H * D), p["wo"])
     return out, new_cache

@@ -25,6 +25,9 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 
 
 def dense(x, w, b=None):
+    if x.dtype != w.dtype:              # jnp.einsum's type promotion
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b

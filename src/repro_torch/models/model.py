@@ -1,6 +1,8 @@
 """Model entry points: init, parameter counts, cache management and the
-serve-path wrappers (prefill / one decode step) of the decoder-only
-attention, MoE, SSM and RG-LRU families."""
+serve-path wrappers (prefill / one decode step) of every family: the
+decoder-only attention, MoE, SSM and RG-LRU stacks, the VLM (vision
+states as ``cross_states``) and Whisper (``frontend_embeds`` encoded
+first)."""
 
 from __future__ import annotations
 
@@ -53,10 +55,12 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 def _slot_cache(cfg, kind: str, nb: Optional[int], batch: int, max_len: int,
                 device=None):
-    """Cache pytree for one pattern slot; leading nb axis when stacked."""
-    if kind not in T.PORTED_KINDS:
-        raise NotImplementedError(f"{kind!r} caches arrive in a later "
-                                  f"slice of the port")
+    """Cache pytree for one pattern slot; leading nb axis when stacked.
+    A ``cross`` block has none: its K/V come from the states each step."""
+    if kind == "cross":
+        return None
+    if kind not in T.KINDS or kind == "enc_attn":
+        raise ValueError(f"no decoder cache for block kind {kind!r}")
     dt = getattr(torch, cfg.dtype)
 
     def zeros(*s, dtype=dt):
@@ -95,24 +99,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 # Serve-path entry points
 # ==========================================================================
 
-def prefill(cfg: ModelConfig, params, tokens, max_len: int):
-    """tokens [B, S] -> (last-position logits [B, vocab], cache)."""
+def prefill(cfg: ModelConfig, params, tokens, max_len: int, *,
+            cross_states=None, frontend_embeds=None):
+    """tokens [B, S] -> (last-position logits [B, vocab], cache).
+    Whisper's ``frontend_embeds`` are encoded into ``cross_states``."""
+    if cfg.enc_layers and frontend_embeds is not None:
+        cross_states = T.encode(cfg, params, frontend_embeds)
     B, S = tokens.shape
     dev = tokens.device
     cache = init_cache(cfg, B, max_len, dev)
     x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     positions = torch.arange(S, device=dev)[None]
-    x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache)
+    x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache,
+                           cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x[:, -1:])
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(x[:, 0], head), cache
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens):
-    """One decode step: tokens [B, 1] -> (logits [B, vocab], new cache)."""
+def decode_step(cfg: ModelConfig, params, cache, tokens, *,
+                cross_states=None):
+    """One decode step: tokens [B, 1] -> (logits [B, vocab], new cache).
+    ``cross_states``: the VLM's vision states or Whisper's encoder states
+    (``T.encode``), re-projected by every cross-attention."""
     x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     positions = cache["len"] + torch.arange(1, device=x.device)[None]
-    x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache)
+    x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache,
+                           cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(x[:, 0], head), cache

@@ -1,4 +1,4 @@
-"""Transformer assembly for the decoder-only attention and SSM families.
+"""Transformer assembly for every architecture of the registry.
 
 The model is a stack of *super-blocks*: each applies the config's
 ``block_pattern`` once.  Parameters keep the reference's stacked layout —
@@ -7,15 +7,16 @@ so the flat leaf order (and the serving pool's Variables) match it leaf
 for leaf.  The reference scans over that axis with ``jax.lax.scan``; here
 a Python loop indexes it.
 
-The port carries the ``attn`` block kinds (llama-family), ``moe``
-(Mixtral, DeepSeek-MoE), ``ssd`` (Mamba-2) and ``rglru``
-(RecurrentGemma).  Cross-attention and encoder blocks raise
-``NotImplementedError`` until their slice.
+Block kinds: the ``attn`` kinds (llama-family), ``moe`` (Mixtral,
+DeepSeek-MoE), ``ssd`` (Mamba-2), ``rglru`` (RecurrentGemma), ``cross``
+(the VLM's gated cross-attention), ``dec_attn_cross`` (Whisper's decoder)
+and ``enc_attn`` (Whisper's bidirectional encoder, :func:`encode`).
 
 Remat: with ``cfg.remat`` and autograd recording, each super-block runs
 under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
-its scanned body in ``jax.checkpoint``: policy ``"full"`` keeps only the
-block's input, ``"dots"`` also keeps every matmul output (selective
+its scanned body in ``jax.checkpoint`` (the encoder's layers always under
+``"full"``, as the reference's): policy ``"full"`` keeps only the block's
+input, ``"dots"`` also keeps every matmul output (selective
 checkpointing, the counterpart of ``dots_saveable``).  ``"attn_out"``
 raises until it is ported (``ROADMAP.md``).
 """
@@ -38,16 +39,14 @@ from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba2_block
 
 ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
-PORTED_KINDS = ("attn", "attn_swa", "attn_local", "moe", "ssd", "rglru")
+KINDS = ATTN_KINDS + ("ssd", "rglru", "cross", "dec_attn_cross")
 
 
 def _check_kinds(cfg) -> None:
     kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
-    bad = [k for k in kinds if k not in PORTED_KINDS]
-    if bad or cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad or ['encoder']} arrive in a "
-            f"later slice of the port (this slice carries {PORTED_KINDS})")
+    bad = [k for k in kinds if k not in KINDS]
+    if bad:
+        raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
 
 
 # ==========================================================================
@@ -58,7 +57,7 @@ def _dt(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _attn_params(cfg, gen, stack):
+def _attn_params(cfg, gen, stack, cross: bool = False):
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = _dt(cfg)
     p = {
@@ -67,7 +66,7 @@ def _attn_params(cfg, gen, stack):
         "wv": L.he_init(gen, (d, Hkv * D), dt, stack),
         "wo": L.he_init(gen, (H * D, d), dt, stack),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:      # cross projections have no bias
         for name, n in (("bq", H * D), ("bk", Hkv * D), ("bv", Hkv * D)):
             p[name] = torch.zeros(tuple(stack) + (n,), dtype=dt,
                                   device=gen.device)
@@ -149,22 +148,29 @@ def _norm_params(cfg, device, stack=()):
 
 
 def _block_params(cfg, gen, kind: str, stack=()):
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} arrives in a later "
-                                  f"slice of the port")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     p = {"norm1": _norm_params(cfg, gen.device, stack)}
     if kind == "ssd":               # attention-free: no norm2, no MLP
         p["ssd"] = _ssd_params(cfg, gen, stack)
         return p
     if kind == "rglru":
         p["rglru"] = _rglru_params(cfg, gen, stack)
+    elif kind == "cross":
+        p["cross"] = _attn_params(cfg, gen, stack, cross=True)
     else:
         p["attn"] = _attn_params(cfg, gen, stack)
     p["norm2"] = _norm_params(cfg, gen.device, stack)
+    if kind == "dec_attn_cross":
+        p["cross"] = _attn_params(cfg, gen, stack, cross=True)
+        p["norm3"] = _norm_params(cfg, gen.device, stack)
     if kind == "moe":
         p["moe"] = _moe_params(cfg, gen, stack)
     else:
         p["mlp"] = _mlp_params(cfg, gen, stack)
+    if kind == "cross":             # gated cross-attention (llama 3.2)
+        p["gate"] = torch.zeros(tuple(stack) + (1,), dtype=_dt(cfg),
+                                device=gen.device)
     return p
 
 
@@ -203,6 +209,12 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None
                         for kind in cfg.block_pattern]
     params["extra"] = [_block_params(cfg, generator, k)
                        for k in cfg.extra_blocks]
+    if cfg.enc_layers:
+        params["encoder"] = _block_params(cfg, generator, "enc_attn",
+                                          (cfg.enc_layers,))
+        params["enc_final_norm"] = _norm_params(cfg, generator.device)
+        params["enc_pos"] = L.trunc_normal(
+            generator, (cfg.frontend_tokens or 1500, cfg.d_model), dt, 0.02)
     return params
 
 
@@ -216,8 +228,23 @@ def _norm(cfg, p, x):
     return L.rms_norm(x, p["scale"])
 
 
+def _with_len(cache, cache_len, cache_bt):
+    if cache is None:
+        return None
+    c = {**cache, "len": cache_len}
+    if cache_bt is not None and "kp" in c:
+        c["bt"] = cache_bt
+    return c
+
+
+def _strip_len(cache):
+    return None if cache is None else {k: v for k, v in cache.items()
+                                       if k not in ("len", "bt")}
+
+
 def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
-                  cache_len=None, cache_bt=None, causal=True):
+                  cache_len=None, cache_bt=None, cross_states=None,
+                  causal=True):
     """One block of kind ``kind``.  Returns (x, new_cache).
 
     Attention caches are stored per layer as {"k","v"} (dense rows) or
@@ -225,10 +252,11 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
     paged caches, the shared block table ``cache_bt`` — is threaded
     separately so layer caches can be stacked.  SSD caches are
     {"conv","ssm"} and RG-LRU caches {"conv","h"}; they take neither.
+    A ``cross`` block has no cache (None passes through); its and
+    ``dec_attn_cross``'s cross-attention reads ``cross_states``.
     """
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} arrives in a later "
-                                  f"slice of the port")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     if kind == "ssd":
         h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
                                     cfg, cache=cache)
@@ -239,19 +267,31 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
         x = x + h
         x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
         return x, new_cache
-    c = None
-    if cache is not None:
-        c = {**cache, "len": cache_len}
-        if cache_bt is not None and "kp" in c:
-            c["bt"] = cache_bt
+    if kind == "cross":
+        h, _ = attention_block(p["cross"], _norm(cfg, p["norm1"], x), cfg,
+                               positions=positions,
+                               cross_states=cross_states)
+        x = x + torch.tanh(p["gate"]) * h
+        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
+        return x, cache             # cross caches are static
+    if kind == "dec_attn_cross":
+        h, new_cache = attention_block(
+            p["attn"], _norm(cfg, p["norm1"], x), cfg, positions=positions,
+            cache=_with_len(cache, cache_len, cache_bt), causal=True)
+        x = x + h
+        h, _ = attention_block(p["cross"], _norm(cfg, p["norm2"], x), cfg,
+                               positions=positions,
+                               cross_states=cross_states)
+        x = x + h
+        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm3"], x))
+        return x, _strip_len(new_cache)
     window = {"attn_swa": cfg.window,
               "attn_local": cfg.local_window}.get(kind, 0)
     h, new_cache = attention_block(
         p["attn"], _norm(cfg, p["norm1"], x), cfg, positions=positions,
-        cache=c, causal=causal, window=window)
-    if new_cache is not None:
-        new_cache = {k: v for k, v in new_cache.items()
-                     if k not in ("len", "bt")}
+        cache=_with_len(cache, cache_len, cache_bt),
+        causal=causal and kind != "enc_attn", window=window)
+    new_cache = _strip_len(new_cache)
     x = x + h
     ff_in = _norm(cfg, p["norm2"], x)
     if kind == "moe":
@@ -264,7 +304,7 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
 
 
 def _superblock(cfg, slot_params, x, *, positions, caches=None,
-                cache_len=None, cache_bt=None):
+                cache_len=None, cache_bt=None, cross_states=None):
     """Apply one instance of the block pattern.  slot_params/caches are
     per-slot lists (already sliced to this super-block)."""
     new_caches = []
@@ -272,7 +312,8 @@ def _superblock(cfg, slot_params, x, *, positions, caches=None,
         c = caches[slot] if caches is not None else None
         x, nc = block_forward(cfg, kind, slot_params[slot], x,
                               positions=positions, cache=c,
-                              cache_len=cache_len, cache_bt=cache_bt)
+                              cache_len=cache_len, cache_bt=cache_bt,
+                              cross_states=cross_states)
         new_caches.append(nc)
     return x, new_caches
 
@@ -287,20 +328,21 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(cfg, body):
-    """``body`` rematerialized per ``cfg.remat_policy`` while autograd
-    records (serving and eval run it as it is)."""
+def _remat(cfg, body, policy=None):
+    """``body`` rematerialized per ``policy`` (default
+    ``cfg.remat_policy``) while autograd records (serving and eval run it
+    as it is)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return body
-    if cfg.remat_policy == "full":
+    policy = policy or cfg.remat_policy
+    if policy == "full":
         context_fn = ckpt.noop_context_fn
-    elif cfg.remat_policy == "dots":
+    elif policy == "dots":
         context_fn = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
     else:
         raise NotImplementedError(
-            f"remat policy {cfg.remat_policy!r} is not ported yet; see "
-            f"ROADMAP.md")
+            f"remat policy {policy!r} is not ported yet; see ROADMAP.md")
 
     def run(*args, **kwargs):
         return ckpt.checkpoint(body, *args, use_reentrant=False,
@@ -311,9 +353,6 @@ def _remat(cfg, body):
 def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
     per-layer cache outputs are re-stacked along the leading axis."""
-    if cross_states is not None:
-        raise NotImplementedError(
-            "cross-attention arrives with the port's VLM/audio families")
     cache_len = caches["len"] if caches is not None else None
     cache_bt = caches.get("bt") if caches is not None else None
     scanned = (caches["layers"] if caches is not None
@@ -325,7 +364,7 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
                                             (params["blocks"], scanned))
         x, y = body(cfg, slot_params, x, positions=positions,
                     caches=slot_caches, cache_len=cache_len,
-                    cache_bt=cache_bt)
+                    cache_bt=cache_bt, cross_states=cross_states)
         ys.append(y)
     new_layer_caches = (tree_map(lambda *zs: torch.stack(zs), *ys)
                         if caches is not None else None)
@@ -335,7 +374,8 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
         c = caches["extra"][i] if caches is not None else None
         x, nc = block_forward(cfg, kind, params["extra"][i], x,
                               positions=positions, cache=c,
-                              cache_len=cache_len, cache_bt=cache_bt)
+                              cache_len=cache_len, cache_bt=cache_bt,
+                              cross_states=cross_states)
         new_extra.append(nc)
 
     new_caches = None
@@ -345,16 +385,36 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     return x, new_caches
 
 
+def _encoder_layer(cfg, p, x, *, positions):
+    return block_forward(cfg, "enc_attn", p, x, positions=positions,
+                         causal=False)[0]
+
+
+def encode(cfg: ModelConfig, params, frontend_embeds):
+    """Encoder stack (Whisper): frontend embeddings [B, T, d] -> states
+    [B, T, d] in ``cfg.dtype``."""
+    x = frontend_embeds.to(getattr(torch, cfg.dtype))
+    x = x + params["enc_pos"][:x.shape[1]][None]
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    body = _remat(cfg, _encoder_layer, "full")
+    for i in range(cfg.enc_layers):
+        p = tree_map(lambda a: a[i], params["encoder"])
+        x = body(cfg, p, x, positions=positions)
+    return _norm(cfg, params["enc_final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, cross_states=None,
             frontend_embeds=None):
-    """Eval forward: tokens [B, S] -> logits [B, S, vocab]."""
-    if cross_states is not None or frontend_embeds is not None:
-        raise NotImplementedError(
-            "cross-attention and encoder inputs arrive with the port's "
-            "VLM/audio families")
+    """Eval forward: tokens [B, S] -> logits [B, S, vocab].
+
+    The VLM passes its vision states as ``cross_states``; Whisper's
+    ``frontend_embeds`` [B, T, d] are encoded first (:func:`encode`)."""
+    if cfg.enc_layers and frontend_embeds is not None:
+        cross_states = encode(cfg, params, frontend_embeds)
     x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
-    x, _ = run_stack(cfg, params, x, positions=positions)
+    x, _ = run_stack(cfg, params, x, positions=positions,
+                     cross_states=cross_states)
     x = _norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(x, head)

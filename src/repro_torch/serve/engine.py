@@ -12,8 +12,15 @@ store, and only the sampled token is fetched per step (see
 serve/terra_decode.py).  ``use_terra=False`` keeps the captured
 donate-the-cache baseline (serve/serve_step.py).  ``device`` (default:
 the CUDA card) holds the params, the cache and every step.
-Cross-attention and encoder inputs (``cross_states``,
-``frontend_embeds``) arrive with the port's cross-attention slice.
+
+Side inputs: the VLM's vision states (``cross_states``) feed prefill and
+every decode step, as in the reference.  Whisper's frame embeddings
+(``frontend_embeds``) are encoded once per batch, and the encoder states
+feed prefill and every decode step as ``cross_states``: the model-level
+path (``tests/test_smoke_archs.py:75-80``).  The reference's
+``run_batch`` drops them after prefill, so its decode attends over the
+new token in place of the audio (``src/repro/serve/engine.py:123-124``;
+ROADMAP.md Queue 3 keeps the difference on purpose).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import time
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -30,7 +38,7 @@ from repro_torch.core.events import EventStream
 from repro_torch.core.executor.families import bucket_pow2
 from repro_torch.core.pytree import tree_flatten, tree_unflatten
 from repro_torch.core.trace import as_tensor, to_numpy
-from repro_torch.serve.serve_step import jit_serve_steps, reject_side_inputs
+from repro_torch.serve.serve_step import jit_encode_step, jit_serve_steps
 from repro_torch.serve.terra_decode import TerraDecoder
 
 
@@ -78,6 +86,10 @@ class ServingEngine:
         self.bucket_batches = bucket_batches
         self.prefill, self.decode = jit_serve_steps(
             cfg, max_len, temperature, donate_cache=True, device=dev)
+        # Whisper's encoder, in the serving steps' capture context
+        self.encode = (jit_encode_step(cfg, dev,
+                                       getattr(self.decode, "ctx", None))
+                       if cfg.enc_layers else None)
         # serving defaults to the SAFE pass pipeline (no constant-feed
         # folding: decode-step token feeds change every call, DESIGN.md
         # §10); $TERRA_OPTIMIZE still overrides when optimize is None
@@ -100,9 +112,15 @@ class ServingEngine:
         The decode loop's budget tracks the *live* requests only: rows
         that hit EOS or their token budget stop counting, so the loop
         ends exactly when the last live row finishes; pad rows added by
-        ``bucket_batches`` never extend it."""
-        reject_side_inputs(extras.pop("cross_states", None),
-                        extras.pop("frontend_embeds", None))
+        ``bucket_batches`` never extend it.
+
+        ``cross_states`` [B, T, d] (the VLM's vision states) or
+        ``frontend_embeds`` [B, T, d] (Whisper's frames, encoded here
+        once; a model without an encoder ignores them, as the
+        reference's prefill does) go with the batch, row for row; pad
+        rows repeat the last row's."""
+        cross = extras.pop("cross_states", None)
+        frames = extras.pop("frontend_embeds", None)
         if extras:
             raise TypeError(f"unexpected arguments {sorted(extras)}")
         B = len(requests)
@@ -120,8 +138,12 @@ class ServingEngine:
                 prompts = np.concatenate(
                     [prompts, np.repeat(prompts[-1:], padded - B, axis=0)])
         t0 = time.perf_counter()
+        if self.encode is not None and frames is not None:
+            cross = self.encode(self.params, self._rows(frames, len(prompts)))
+        elif cross is not None:
+            cross = self._rows(cross, len(prompts))
         next_tok, cache = self.prefill(self.params,
-                                       as_tensor(prompts, self.device))
+                                       as_tensor(prompts, self.device), cross)
         next_tok = to_numpy(next_tok)[:, None]
         now = time.perf_counter()
         self.stats["prefill_time"] += now - t0
@@ -156,11 +178,12 @@ class ServingEngine:
                 if not live():
                     break
                 if self.terra is not None:
-                    tok = self.terra.step(next_tok)
+                    tok = self.terra.step(next_tok, cross)
                     next_tok = np.asarray(tok)    # Output Fetching point
                 else:
                     tok, cache = self.decode(self.params, cache,
-                                             as_tensor(next_tok, self.device))
+                                             as_tensor(next_tok, self.device),
+                                             None, cross)
                     next_tok = to_numpy(tok)
                 steps += 1
                 self.stats["decode_steps"] += 1
@@ -189,6 +212,15 @@ class ServingEngine:
                     r.finish_time = now
             self.stats["decode_time"] += now - t0
         return requests
+
+    def _rows(self, states, rows: int):
+        """Side-input states on the engine's device, padded to ``rows``
+        by repeating the last row (the pad rows' prompts repeat too)."""
+        states = as_tensor(states, self.device)
+        if states.shape[0] < rows:
+            states = torch.cat([states, states[-1:].expand(
+                rows - states.shape[0], *states.shape[1:])])
+        return states
 
     def close(self) -> None:
         if self.terra is not None:

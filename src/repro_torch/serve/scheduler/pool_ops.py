@@ -69,15 +69,14 @@ RECURRENT_KINDS = ("ssd", "rglru")
 def check_supported(cfg) -> None:
     """The slot pool supports self-attention and recurrent decoder stacks;
     encoder/cross-attention families need per-request side inputs that the
-    pooled step has no lane for yet (the reference serves those with the
-    lock-step engine; the port's cross-attention slice brings them)."""
+    pooled step has no lane for yet — the lock-step engine serves those."""
     kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
     bad = [k for k in kinds if k not in PAD_SAFE_KINDS + RECURRENT_KINDS]
     if bad or cfg.enc_layers:
         raise NotImplementedError(
             f"slot-pooled scheduling does not support {cfg.name}: block "
             f"kinds {bad or ['encoder']} need per-request cross/frontend "
-            "state, which arrives with the port's cross-attention slice")
+            "state; use ServingEngine.run_batch for this family")
 
 
 def pads_allowed(cfg) -> bool:

@@ -14,7 +14,9 @@ runtime instead of a captured step:
   through Python,
 * only the sampled token crosses back per step (an Output Fetching point),
   leaving Python free for retirement bookkeeping while the GraphRunner
-  queues the next step.
+  queues the next step,
+* the VLM's vision states or Whisper's encoder states (``cross_states``)
+  are a per-step feed of the decode op, as in the reference.
 
 On a CUDA card the engine captures the compiled decode segment as a CUDA
 graph, as it does every segment (``core/capture.py``).  Pytrees are
@@ -34,7 +36,7 @@ from repro_torch.core.pytree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.core.tensor import Variable
 from repro_torch.core.trace import as_tensor
 from repro_torch.serve.meta import MetaRegistry
-from repro_torch.serve.serve_step import build_decode_step, reject_side_inputs
+from repro_torch.serve.serve_step import build_decode_step
 
 # meta id -> (params_treedef, cache_treedef, decode_fn)
 _META = MetaRegistry()
@@ -45,14 +47,16 @@ def _register_meta(params_def, cache_def, decode_fn) -> int:
 
 
 def _decode_impl(*leaves, _meta: int, _n_params: int, _n_cache: int,
-                 _has_rng: bool):
+                 _has_rng: bool, _has_cross: bool):
     params_def, cache_def, decode_fn = _META.get(_meta)
     params = tree_unflatten(params_def, leaves[:_n_params])
     cache = tree_unflatten(cache_def, leaves[_n_params:_n_params + _n_cache])
     rest = list(leaves[_n_params + _n_cache:])
     tokens = rest.pop(0)
     rng = rest.pop(0) if _has_rng else None
-    tok, new_cache = decode_fn(params, cache, tokens, rng=rng)
+    cross = rest.pop(0) if _has_cross else None
+    tok, new_cache = decode_fn(params, cache, tokens, rng=rng,
+                               cross_states=cross)
     return (tok,) + tuple(tree_leaves(new_cache))
 
 
@@ -136,20 +140,24 @@ class TerraDecoder:
 
     # ------------------------------------------------------------------
     def step(self, tokens, cross_states=None):
-        """One decode step; returns a (possibly placeholder) token tensor."""
-        reject_side_inputs(cross_states)
-        return self._tf(tokens)
+        """One decode step; returns a (possibly placeholder) token tensor.
+        ``cross_states`` (on the engine's device) is a feed of the step."""
+        return self._tf(tokens, cross_states)
 
-    def _step(self, tokens):
+    def _step(self, tokens, cross_states):
         args = [v.read() for v in self._param_vars]
         args += [v.read() for v in self._cache_vars]
         args.append(tokens)
         has_rng = self.temperature > 0.0
         if has_rng:
             args.append(ops_mod._next_key())    # iteration-stable key feed
+        has_cross = cross_states is not None
+        if has_cross:
+            args.append(cross_states)
         outs = _decode_op(*args, _meta=self._meta,
                           _n_params=len(self._param_vars),
-                          _n_cache=len(self._cache_vars), _has_rng=has_rng)
+                          _n_cache=len(self._cache_vars), _has_rng=has_rng,
+                          _has_cross=has_cross)
         for var, leaf in zip(self._cache_vars, outs[1:]):
             var.assign(leaf)
         return outs[0]

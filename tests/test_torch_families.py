@@ -65,17 +65,21 @@ def _close(got, want, tol=TOL):
 
 
 def test_registry_carries_the_decoder_archs():
+    """The registry is the reference's ten: the decoder archs, and since
+    the cross-attention slice whisper-small and llama-3.2-vision-90b,
+    each config and smoke config equal to the reference's."""
     from repro.configs import get_config as jg
+    from repro.configs.registry import ARCHS as J_ARCHS
     assert sorted(ARCHS) == sorted(
-        ["llama3-8b", "mamba2-130m"] + NEW_ARCHS)
+        ["llama3-8b", "mamba2-130m"] + NEW_ARCHS
+        + ["whisper-small", "llama-3.2-vision-90b"]) == sorted(J_ARCHS)
     for name in ARCHS:
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jg(name))
         assert dataclasses.asdict(t_smoke(name)) == \
             dataclasses.asdict(j_smoke(name))
-    for later in ("whisper-small", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            get_config(later)
+    assert get_config("whisper-small").enc_layers == 12
+    assert "cross" in get_config("llama-3.2-vision-90b").block_pattern
 
 
 def test_forward_matches_reference(arch):

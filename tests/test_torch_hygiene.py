@@ -85,6 +85,27 @@ def test_training_modules_are_scanned_and_import_no_jax():
                              r"\bfrom repro\.|\bimport repro\b", src), path
 
 
+def test_cross_attention_modules_are_scanned_and_import_no_jax():
+    """The cross-attention slice's configs, model and serving modules,
+    the port's serving example and ``chip_smoke.py`` (which holds the
+    whisper scoring program) are among the scanned files, and none of
+    them names JAX or the reference at all."""
+    files = _port_files()
+    want = [os.path.join(PORT, *rel.split("/")) for rel in (
+        "configs/whisper_small.py", "configs/llama32_vision_90b.py",
+        "configs/registry.py", "models/attention.py",
+        "models/transformer.py", "models/model.py", "serve/serve_step.py",
+        "serve/terra_decode.py", "serve/engine.py")]
+    want += [os.path.join(ROOT, "examples", "serve_demo_torch.py"),
+             os.path.join(ROOT, "chip_smoke.py")]
+    for path in want:
+        assert path in files, path
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"\bimport jax|\bfrom jax\b|"
+                             r"\bfrom repro\.|\bimport repro\b", src), path
+
+
 def test_executor_passes_scheduler_events_kernels_modules_stay_small():
     """The reference's decomposition contract (tests/test_executor.py),
     held for the port's counterparts."""

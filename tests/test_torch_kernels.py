@@ -110,6 +110,38 @@ def test_flash_attention_matches_reference_kernel(case, dtype, jax_ref):
     assert kops.flash_attention.launches == 0       # the CPU launches nothing
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(1, 2, 1, 128, 128, 80, True, 0),
+                                  (1, 2, 2, 64, 128, 80, False, 0)],
+                         ids=["causal-gqa", "cross-shape"])
+def test_flash_attention_at_d80_matches_reference_kernel(case, dtype,
+                                                          jax_ref):
+    """A head dim between the instantiated ones (the card runs it in the
+    D = 128 kernel, its extra columns masked): the plain version against
+    the Pallas kernel in interpret mode, which takes any D."""
+    jnp, jops = jax_ref
+    arrs = _attn_inputs(case, seed=3)
+    got = kops.flash_attention(*(_t(a, dtype) for a in arrs),
+                               causal=case[6], window=case[7])
+    want = jops.flash_attention(*(jnp.asarray(a).astype(dtype) for a in arrs),
+                                causal=case[6], window=case[7],
+                                q_block=64, kv_block=64)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+
+
+def test_head_dims_the_kernels_take():
+    """Every multiple of 8 up to 256 runs in the next instantiated head
+    dim; any other D raises on the card, naming the shape."""
+    from repro_torch.kernels.build import head_dim_instance
+    assert [head_dim_instance(d, "x") for d in (8, 16, 24, 64, 72, 80, 96,
+                                                 128, 136, 256)] == \
+        [16, 16, 32, 64, 128, 128, 128, 128, 256, 256]
+    for bad in (0, 4, 81, 100, 264, 512):
+        with pytest.raises(ValueError, match="q \\(1, 2, 8"):
+            head_dim_instance(bad, "q (1, 2, 8, 81)")
+
+
 def flash_bf16p(q, k, v, *, causal=True, window=0, tile=64):
     """The bf16 kernel's arithmetic in plain torch: 64-key tiles, scores
     scaled by D^-0.5 * log2(e) in f32 and then masked, an online softmax
@@ -290,6 +322,7 @@ def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
 RMS_NS = "_ZN43_GLOBAL__N__74c2a8ec_10_rmsnorm_cu_a1f87139"
 SSD_NS = "_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_f5ebf9df"
 PAGED_NS = "_ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_5ce215f8"
+FLASH_NS = "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b18"
 
 
 def test_chip_smoke_names_the_redesigned_kernels():
@@ -318,6 +351,11 @@ def test_chip_smoke_names_the_redesigned_kernels():
         (SSD_NS + "15ssd_pass_kernelENS_4ArgsEi", "ssd_pass_kernel"),
         (PAGED_NS + "25paged_split_padded_kernelIfLi256ELi16EEEvPKT_S3_S3_"
          "PKiS5_PS1_Pfiiiiiif", "paged_split_padded_kernel<f32,256,16>"),
+        # bool arguments: the masked head-dim instantiations
+        (PAGED_NS + "20paged_combine_kernelI13__nv_bfloat16Lb1EEEvPKfPT_"
+         "iiiiii", "paged_combine_kernel<bf16,true>"),
+        (FLASH_NS + "17flash_bf16_kernelILi64ELb0EEEvPK13__nv_bfloat16S3_"
+         "S3_PS1_iiiiiiiif", "flash_bf16_kernel<64,false>"),
     ]
     for mangled, want in names:
         assert cs._short_kernel(mangled) == want

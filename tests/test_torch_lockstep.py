@@ -11,7 +11,12 @@ the tokens.  The run_batch satellites of tests/test_scheduler.py:254-290
 hold as they do there.  The continuous-batching scheduler serves the MoE
 and hybrid families with the reference scheduler's tokens and counters,
 and its per-request tokens equal the lock-step oracle's
-(tests/test_scheduler.py:34-41).
+(tests/test_scheduler.py:34-41).  The side-input families:
+llama-3.2-vision-90b's ``run_batch`` with ``cross_states`` equals the
+reference's; whisper-small's with ``frontend_embeds`` equals the
+reference's model-level loop (prefill, then decode with the encoder
+states), which the reference's own ``run_batch`` leaves after the first
+token (ROADMAP.md Queue 3).
 """
 
 import dataclasses
@@ -21,9 +26,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
 from repro.serve.engine import Request as JRequest  # noqa: E402
 from repro.serve.engine import ServingEngine as JEngine  # noqa: E402
 from repro.serve.scheduler import \
@@ -56,11 +63,18 @@ def _one_thread():
 
 def model(arch):
     """(jcfg, tcfg, reference params, port params) of a float32 smoke
-    config, made once per process."""
+    config, made once per process.  A VLM's cross gates (zero at init,
+    which would hide the vision states) get seeded non-zero values."""
     if arch not in _MODELS:
         jcfg = dataclasses.replace(j_smoke(arch), **F32)
         tcfg = dataclasses.replace(t_smoke(arch), **F32)
         jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+        rng = np.random.RandomState(3)
+        jp["blocks"] = [
+            {**b, "gate": jnp.asarray(rng.uniform(0.3, 1.0, b["gate"].shape),
+                                      b["gate"].dtype)}
+            if kind == "cross" else b
+            for b, kind in zip(jp["blocks"], jcfg.block_pattern)]
         tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
         _MODELS[arch] = (jcfg, tcfg, jp, tp)
     return _MODELS[arch]
@@ -139,16 +153,148 @@ def test_batch_size_change_retraces_and_keeps_tokens():
 
 
 def test_run_batch_rejects_ragged_prompts_and_side_inputs():
-    _, tcfg, _, tp = model("llama3-8b")
+    """Ragged prompts and unknown arguments raise; the side inputs are
+    taken, and a model with no cross-attention or encoder ignores them,
+    as the reference's engine does (same tokens as without them)."""
+    jcfg, tcfg, jp, tp = model("llama3-8b")
     eng = ServingEngine(tcfg, tp, max_len=MAX_LEN, use_terra=False,
                         device="cpu")
     with pytest.raises(ValueError, match="same-length"):
         eng.run_batch(make_requests(Request, tcfg.vocab, [8, 5], [4, 4]))
-    reqs = make_requests(Request, tcfg.vocab, [8], [4])
+    with pytest.raises(TypeError, match="unexpected"):
+        eng.run_batch(make_requests(Request, tcfg.vocab, [8], [4]),
+                      images=np.zeros((1, 4, tcfg.d_model), np.float32))
+    plain = make_requests(Request, tcfg.vocab, [8], [4])
+    eng.run_batch(plain)
+    jeng = JEngine(jcfg, jp, max_len=MAX_LEN, use_terra=False)
     for kw in ("cross_states", "frontend_embeds"):
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            eng.run_batch(reqs, **{kw: np.zeros((1, 4, tcfg.d_model),
-                                                np.float32)})
+        side = np.random.RandomState(2).randn(1, 4, tcfg.d_model) \
+            .astype(np.float32)
+        reqs = make_requests(Request, tcfg.vocab, [8], [4])
+        eng.run_batch(reqs, **{kw: side})
+        jreqs = make_requests(JRequest, jcfg.vocab, [8], [4])
+        jeng.run_batch(jreqs, **{kw: jnp.asarray(side)})
+        assert reqs[0].out_tokens == jreqs[0].out_tokens \
+            == plain[0].out_tokens
+    eng.close()
+
+
+# --------------------------------------------------------------------------
+# the side-input families: llama-3.2-vision-90b and whisper-small
+# --------------------------------------------------------------------------
+
+SIDE_BATCHES = [([12] * 3, [6, 4, 6]), ([12] * 3, [5, 6, 3])]
+
+
+def side_states(cfg, batch, seed):
+    """Seeded vision states or frame embeddings [batch, T, d] (f32)."""
+    return np.random.RandomState(50 + seed).randn(
+        batch, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+
+
+def serve_with_side(eng, R, cfg, kw, wrap=np.asarray):
+    """SIDE_BATCHES through ``eng.run_batch`` with seeded side inputs."""
+    out = []
+    for i, (lens, mns) in enumerate(SIDE_BATCHES):
+        reqs = make_requests(R, cfg.vocab, lens, mns, seed=i)
+        eng.run_batch(reqs, **{kw: wrap(side_states(cfg, len(lens), i))})
+        out.append([r.out_tokens for r in reqs])
+    return out
+
+
+def whisper_model_level(jcfg, jp):
+    """The reference's model-level path for SIDE_BATCHES
+    (tests/test_smoke_archs.py:75-80): ``prefill(frontend_embeds=...)``,
+    then ``decode_step(cross_states=encode(...))`` each step; each row
+    cut at its own budget."""
+    out = []
+    for i, (lens, mns) in enumerate(SIDE_BATCHES):
+        reqs = make_requests(JRequest, jcfg.vocab, lens, mns, seed=i)
+        prompts = jnp.asarray(np.stack([r.prompt for r in reqs]))
+        fe = jnp.asarray(side_states(jcfg, len(lens), i))
+        logits, cache = JM.prefill(jcfg, jp, prompts, MAX_LEN,
+                                   frontend_embeds=fe)
+        states = JT.encode(jcfg, jp, fe)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        toks = [np.asarray(tok)]
+        for _ in range(max(mns) - 1):
+            logits, cache = JM.decode_step(jcfg, jp, cache, tok[:, None],
+                                           cross_states=states)
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            toks.append(np.asarray(tok))
+        rows = np.stack(toks, 1)
+        out.append([rows[b, :m].tolist() for b, m in enumerate(mns)])
+    return out
+
+
+@pytest.mark.parametrize("use_terra", [True, False])
+def test_vlm_run_batch_matches_reference(use_terra):
+    """``cross_states`` feed prefill and every decode step: tokens,
+    lock-step counters and (co-executed) engine counters equal the
+    reference's ``run_batch``."""
+    arch = "llama-3.2-vision-90b"
+    jcfg, tcfg, jp, tp = model(arch)
+    jeng = JEngine(jcfg, jp, max_len=MAX_LEN, use_terra=use_terra)
+    want = serve_with_side(jeng, JRequest, jcfg, "cross_states", jnp.asarray)
+    eng = ServingEngine(tcfg, tp, max_len=MAX_LEN, use_terra=use_terra,
+                        device="cpu")
+    got = serve_with_side(eng, Request, tcfg, "cross_states")
+    assert got == want
+    assert {k: eng.stats[k] for k in LOCKSTEP_KEYS} == \
+        {k: jeng.stats[k] for k in LOCKSTEP_KEYS}
+    if use_terra:
+        assert eng.terra.phase == "co-execution"
+        assert {k: eng.terra.stats.get(k) for k in ENGINE_KEYS} == \
+            {k: jeng.terra.stats.get(k) for k in ENGINE_KEYS}
+        jeng.terra.close()
+    eng.close()
+    # the states reach the tokens
+    eng = ServingEngine(tcfg, tp, max_len=MAX_LEN, use_terra=use_terra,
+                        device="cpu")
+    half = serve_with_side(eng, Request, tcfg, "cross_states",
+                           lambda a: a * 0.25)
+    eng.close()
+    assert half != got
+
+
+@pytest.mark.parametrize("use_terra", [True, False])
+def test_whisper_run_batch_matches_model_level_loop(use_terra):
+    """``frontend_embeds`` are encoded once a batch and the encoder
+    states feed prefill and every decode step: the tokens equal the
+    reference's model-level loop, and the lock-step counters its
+    ``run_batch``'s."""
+    jcfg, tcfg, jp, tp = model("whisper-small")
+    want = whisper_model_level(jcfg, jp)
+    eng = ServingEngine(tcfg, tp, max_len=MAX_LEN, use_terra=use_terra,
+                        device="cpu")
+    got = serve_with_side(eng, Request, tcfg, "frontend_embeds")
+    assert got == want
+    jeng = JEngine(jcfg, jp, max_len=MAX_LEN, use_terra=False)
+    serve_with_side(jeng, JRequest, jcfg, "frontend_embeds", jnp.asarray)
+    assert {k: eng.stats[k] for k in LOCKSTEP_KEYS} == \
+        {k: jeng.stats[k] for k in LOCKSTEP_KEYS}
+    if use_terra:
+        assert eng.terra.phase == "co-execution"
+    eng.close()
+
+
+def test_reference_whisper_run_batch_drops_the_audio_after_the_first_token():
+    """The reference's ``run_batch`` decodes with ``cross_states=None``
+    (src/repro/serve/engine.py:123-124, 146-149), so its decoder's cross
+    attention attends over the new token: its tokens agree with the
+    model-level loop at the first token only.  Pinned so that the port's
+    deliberate difference stays visible."""
+    jcfg, _, jp, _ = model("whisper-small")
+    want = whisper_model_level(jcfg, jp)
+    for use_terra in (True, False):
+        jeng = JEngine(jcfg, jp, max_len=MAX_LEN, use_terra=use_terra)
+        ref = serve_with_side(jeng, JRequest, jcfg, "frontend_embeds",
+                              jnp.asarray)
+        if use_terra:
+            jeng.terra.close()
+        for batch_ref, batch_want in zip(ref, want):
+            assert [r[0] for r in batch_ref] == [r[0] for r in batch_want]
+            assert batch_ref != batch_want
 
 
 @pytest.mark.parametrize("use_terra", [False, True])

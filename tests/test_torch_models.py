@@ -199,18 +199,38 @@ def test_paged_single_token_decode(llama, kernel):
 
 
 def test_unported_block_kinds_raise():
-    """Cross-attention blocks and encoder stacks arrive in a later slice
-    (``moe`` and ``rglru``, which this test used to build, now port)."""
+    """Every block kind of the reference now ports (the cross-attention
+    slice brought ``cross``, ``dec_attn_cross`` and the encoder, as earlier
+    slices ``moe`` and ``rglru``): tiny configs of both build with the
+    reference's parameter layout and run its forward; only a kind the
+    reference does not know raises."""
+    from repro.configs.base import ModelConfig as JConfig
     from repro_torch.configs.base import ModelConfig
-    cross = ModelConfig(name="m", family="vlm", n_layers=2, d_model=16,
-                        n_heads=2, n_kv_heads=1, d_ff=32, vocab=32,
-                        block_pattern=("attn", "cross"))
-    enc = ModelConfig(name="w", family="audio", n_layers=1, d_model=16,
-                      n_heads=2, n_kv_heads=1, d_ff=32, vocab=32,
-                      block_pattern=("dec_attn_cross",), enc_layers=1)
-    for cfg in (cross, enc):
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, device="cpu")
+    base = dict(n_heads=2, n_kv_heads=1, d_ff=32, vocab=32, d_model=16,
+                dtype="float32", param_dtype="float32", frontend_tokens=6)
+    kinds = (dict(name="m", family="vlm", n_layers=2,
+                  block_pattern=("attn", "cross")),
+             dict(name="w", family="audio", n_layers=1, norm="ln",
+                  block_pattern=("dec_attn_cross",), enc_layers=1))
+    rng = np.random.RandomState(0)
+    for kw in kinds:
+        cfg, jcfg = ModelConfig(**base, **kw), JConfig(**base, **kw)
+        jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+        tp = TM.init_params(cfg, device="cpu")
+        assert [tuple(a.shape) for a in tree_flatten(tp)[0]] == \
+            [tuple(a.shape) for a in jax.tree.leaves(jp)]
+        tok = rng.randint(0, 32, (2, 5)).astype(np.int32)
+        side = rng.randn(2, 6, 16).astype(np.float32)
+        key = "frontend_embeds" if cfg.enc_layers else "cross_states"
+        want = JM.forward(jcfg, jp, jnp.asarray(tok), **{key: side})
+        got = TM.forward(cfg, params_from_jax(
+            jax.tree.map(np.asarray, jp), "cpu"), torch.from_numpy(tok),
+            **{key: torch.from_numpy(side)})
+        _close(got, want)
+    bad = ModelConfig(**base, name="x", family="dense", n_layers=1,
+                      block_pattern=("conv",))
+    with pytest.raises(ValueError, match="conv"):
+        TM.init_params(bad, device="cpu")
 
 
 def test_mamba2_configs_are_the_reference_configs():

@@ -120,6 +120,21 @@ def test_plain_matches_interpret_mode_kernel(jax_ref, shape, window):
     np.testing.assert_allclose(got, kernel, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [0, 6])
+def test_plain_matches_interpret_mode_kernel_at_d80(jax_ref, window):
+    """A head dim between the instantiated ones (the card runs it in the
+    D = 128 kernels, the arena read as it is, its extra columns masked):
+    the plain version against the Pallas kernel in interpret mode."""
+    jnp, jops, _ = jax_ref
+    shape = next(s for s in SHAPES if s[3] == 80)
+    B, Hkv, G, D, bs, nbps, nblocks, valid = shape
+    x = _inputs(B, Hkv * G, Hkv, D, bs, nbps, nblocks, valid, seed=80)
+    got = _port(*x, "float32", window)
+    kernel = np.asarray(jops.paged_attention(*_jax_in(jnp, *x, "float32"),
+                                             window=window), np.float32)
+    np.testing.assert_allclose(got, kernel, rtol=2e-5, atol=2e-5)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, kp, vp, bt, vl = _inputs(2, 4, 2, 16, 8, 2, 5, [3, 9], seed=0)
     args = [torch.from_numpy(a) for a in (q, kp, vp, bt, vl)]
