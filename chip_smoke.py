@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase (needs one H100)
     python3 chip_smoke.py --profile       # + steady-state decode timing
+    python3 chip_smoke.py --only obs,persist   # the build and two phases
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -159,7 +160,47 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``use_terra=False``, captured, under ``disable_jit()`` and on
               the CPU; a whisper decode step with and without the encoder
               states gives different tokens.
-14. profile — only with ``--profile``: steady-state decode time per step,
+14. obs     — the observability layer (repro_torch.obs) on llama3-8b at
+              full width and depth (bf16, paged, co-executed, the kernels
+              pass): one batch of 8 requests (prompts 96-128, 48 new)
+              decoded with everything off, then with ``enable_metrics()``,
+              ``RequestTraceProcessor``, ``JsonlSink`` and
+              ``TraceViewerExporter`` attached, then with
+              ``set_profile(1)`` as well (decode ms a step in each: the
+              tracing ratio); greedy tokens equal in all three.  Every
+              sampled decode step names ``kernel.slot_decode_paged``, and
+              its CUDA-event device time is at most its closure's host
+              wall; three single decode steps, each under its own
+              torch.profiler window, have device time at least the
+              profiler's paged-kernel time.  The registry's TTFT count
+              equals the requests served and its token count the tokens
+              generated (TTFT and TPOT p50/p99 beside the scheduler's own
+              clock); ``/metrics`` scraped from ``MetricsServer`` on
+              loopback parses as Prometheus text; the JSONL loads with
+              ``load_jsonl``; ``obs.report`` writes the segment table and
+              a ``.trace.json`` with monotone tracks and complete request
+              flows (files in chiprun_out/).  Then the scoring program
+              through ``function(profile=2, optimize="all")``: sampled
+              segments name ``kernel.attention`` and ``kernel.rms_norm``.
+15. persist — warm boots: two child processes in turn (this script with
+              ``--persist-child``), sharing a ``$TERRA_CACHE_DIR`` in a
+              temporary directory, each serving llama3-8b (full width and
+              depth, bf16) through the co-executed paged scheduler (4
+              first requests, then phase 3's 12) and scoring 4 calls of
+              4 x 512 tokens through ``function``: the warm boot shows
+              ``retraces`` 0, ``segments_recompiled`` 0, warm families,
+              AOT loads and artifact hits, tokens and the compiled calls'
+              scores equal to the cold boot's (<= 1e-6), and the same
+              launches per compiled step and call; time to the first
+              token, to the first score and to co-execution cold against
+              warm, artifact bytes, graphs captured anew.  Then a
+              llama3-8b scheduler checkpointed mid-run (requests in flight
+              and queued, the paged arena copied to the host), restored
+              into a fresh scheduler: the remaining tokens equal an
+              uninterrupted run's; and an engine checkpoint of the gpt2
+              program: the restored engine's losses equal the donor's.
+              Checkpoint bytes, save and restore walls.
+16. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -3509,12 +3550,635 @@ def phase_cross(kernel_rows):
     release()
 
 
+# --------------------------------------------------------------------------
+# phases obs and persist (the observability layer, warm boots, checkpoints)
+# --------------------------------------------------------------------------
+
+OBS_SLOTS, OBS_PROMPT, OBS_NEW = 8, (96, 128), 48
+OBS_PROFILED_STEPS = 3          # decode steps each under its own profiler
+OBS_SCORE_PROFILE = 2           # function(profile=N) of the scoring program
+_PROM_LINE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+=\"[^\"]*\"(,[a-zA-Z_]+="
+    r"\"[^\"]*\")*\})? [-+0-9.eEnaif]+$")
+
+
+def obs_requests(cfg, seed):
+    """OBS_SLOTS requests, arriving now (the scheduler's clock), prompts
+    OBS_PROMPT tokens, OBS_NEW new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.RandomState(seed)
+    return [Request(prompt=rng.randint(0, cfg.vocab, int(rng.randint(
+        OBS_PROMPT[0], OBS_PROMPT[1] + 1))).astype(np.int32),
+        max_new_tokens=OBS_NEW) for _ in range(OBS_SLOTS)]
+
+
+def decode_window(sched, reqs):
+    """Serve ``reqs`` (one batch: every slot busy); -> (ms a decode step
+    over the steps after the first two scheduler steps, their count)."""
+    for r in reqs:
+        sched.submit(r)
+    sched.run(max_steps=2)                  # the prefill, a first decode
+    st0 = sched.stats["decode_steps"]
+    t0 = time.perf_counter()
+    sched.run()                             # drains and waits on the card
+    dt = time.perf_counter() - t0
+    n = sched.stats["decode_steps"] - st0
+    return dt / n * 1e3, n
+
+
+def profile_joins(events):
+    """(SegmentProfile, RunnerComplete wall) pairs: the profile joined to
+    its SegmentDispatch on (iter, kind, index), that to its closure's
+    RunnerComplete on seq (the report CLI's join)."""
+    from repro_torch.core.events import types as T
+    seq = {(e.iter_id, e.kind, e.index): e.seq for e in events
+           if type(e) is T.SegmentDispatch}
+    wall = {e.seq: e.wall for e in events if type(e) is T.RunnerComplete}
+    out = []
+    for e in events:
+        if type(e) is T.SegmentProfile:
+            s = seq.get((e.iter_id, e.kind, e.index))
+            out.append((e, wall.get(s)))
+    return out
+
+
+def check_profiles(label, events, kernel_ops):
+    """Every sampled segment holding ``kernel_ops`` names them, and its
+    CUDA-event device time is positive and at most its closure's host
+    wall; -> the sampled profiles that hold them."""
+    pairs = [(e, w) for e, w in profile_joins(events)
+             if set(kernel_ops) & set(e.kernels)]
+    check(pairs, f"{label}: no sampled segment names {kernel_ops}")
+    for e, w in pairs:
+        check(set(kernel_ops) <= set(e.kernels),
+              f"{label}: {e.kind}[{e.index}] kernels {e.kernels}")
+        check(w is not None and 0.0 < e.device <= w,
+              f"{label}: {e.kind}[{e.index}] device {e.device:.6f} s, "
+              f"host wall {w}")
+    return [e for e, _ in pairs]
+
+
+def check_timeline(path, retired):
+    """A Chrome/Perfetto export: every track's timestamps monotone, every
+    retired request's flow complete (start, step, finish)."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    tracks, flows = {}, {}
+    for e in evs:
+        if e["ph"] == "M":
+            continue
+        tracks.setdefault((e["pid"], e["tid"]), []).append(e["ts"])
+        if e.get("cat") == "flow" and str(e["id"]).startswith("req:"):
+            flows.setdefault(e["id"], []).append(e["ph"])
+    for track, tss in tracks.items():
+        check(tss == sorted(tss), f"{path}: track {track} not monotone")
+    check(set(flows) == {f"req:{r}" for r in retired},
+          f"{path}: flows {len(flows)} for {len(retired)} retired requests")
+    for fid, phs in flows.items():
+        check(phs[0] == "s" and phs[-1] == "f" and "t" in phs
+              and phs.count("s") == 1 and phs.count("f") == 1,
+              f"{path}: flow {fid} {phs}")
+    return len(evs)
+
+
+def scrape_metrics(registry):
+    """GET /metrics from a MetricsServer on loopback; every line parses as
+    Prometheus text; -> the metric names."""
+    import urllib.request
+    from repro_torch.obs.http import MetricsServer
+    srv = MetricsServer(registry)
+    try:
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+    finally:
+        srv.stop()
+    names = set()
+    for line in text.splitlines():
+        if not line or line.startswith("# TYPE"):
+            continue
+        check(_PROM_LINE.match(line), f"/metrics line {line!r}")
+        names.add(line.split("{")[0].split(" ")[0])
+    return names
+
+
+def pct(a, q: str) -> float:
+    """Percentile ``q`` ("p50") by the registry's rank rule: the sample of
+    rank ceil(q / 100 * n)."""
+    import numpy as np
+    return float(np.percentile(a, float(q[1:]), method="inverted_cdf"))
+
+
+def request_clock(reqs):
+    """(TTFT ms, TPOT ms) a request by the scheduler's own clock."""
+    import numpy as np
+    ttft = [(r.first_token_time - r.arrival_time) * 1e3 for r in reqs]
+    tpot = [(r.finish_time - r.first_token_time) * 1e3
+            / (len(r.out_tokens) - 1) for r in reqs]
+    return np.asarray(ttft), np.asarray(tpot)
+
+
+def phase_obs(out_dir):
+    """llama3-8b serving with the observability layer attached, and the
+    scoring program through ``function(profile=N)``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import (JsonlSink, RequestTraceProcessor,
+                                         load_jsonl)
+    from repro_torch.core.events import types as T
+    from repro_torch.models import model as M
+    from repro_torch.obs import (MetricsProcessor, TraceViewerExporter,
+                                 report)
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = get_config("llama3-8b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                        **SERVE_KW)
+    decode_window(sched, obs_requests(cfg, 0))        # tracing + capture
+
+    os.makedirs(out_dir, exist_ok=True)
+    jsonl = os.path.join(out_dir, "obs_serving.jsonl")
+    open(jsonl, "w").close()
+    registry = sched.enable_metrics()
+    procs = [p for p in sched.events._procs
+             if isinstance(p, MetricsProcessor)]
+    tracer, sink = RequestTraceProcessor(), JsonlSink(jsonl)
+    viewer = TraceViewerExporter(jsonl + ".perfetto")
+    procs += [tracer, sink, viewer]
+    graphs0 = sched._tf.engine.capture.stats["graphs"]
+    # counts of this path only: zeroed just before it, read just after
+    zero_counts()
+    st0 = sched.stats
+    served, turns, toks = [], {}, {}
+    # everything off, on (the processors attached) and sampled (every
+    # step profiled as well), in turns; each arm's best turn is its time
+    for arm in ("off", "on", "sampled", "sampled", "on", "off"):
+        for p in procs:
+            sched.events.detach(p)
+            if arm != "off":
+                sched.events.attach(p)
+        sched.set_profile(1 if arm == "sampled" else 0)
+        reqs = obs_requests(cfg, 1)
+        turns.setdefault(arm, []).append(decode_window(sched, reqs))
+        toks.setdefault(arm, []).append([r.out_tokens for r in reqs])
+        if arm != "off":
+            served += reqs
+    for p in procs:
+        sched.events.attach(p)
+    arms = {a: min(t) for a, t in turns.items()}
+    # the latency percentiles printed below: these 32 requests (the
+    # profiler windows next stretch their requests' token gaps)
+    snap = registry.snapshot()["histograms"]
+    ttft, tpot = request_clock(served)
+    # single sampled decode steps, each under its own profiler window
+    sched.set_profile(1)
+    reqs = obs_requests(cfg, 2)
+    for r in reqs:
+        sched.submit(r)
+    sched.run(max_steps=3)
+    per_step = []
+    for _ in range(OBS_PROFILED_STEPS):
+        n0 = len(viewer.events)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sched.run(max_steps=1)
+            torch.cuda.synchronize()
+        paged_ms = sum(_device_us(e) for e in prof.key_averages()
+                       if "paged" in e.key) / 1e3
+        step = [e for e in viewer.events[n0:]
+                if type(e) is T.SegmentProfile
+                and "kernel.slot_decode_paged" in e.kernels]
+        check(len(step) == 1, f"obs: {len(step)} sampled decode steps in a "
+              f"profiled scheduler step")
+        per_step.append((step[0].device * 1e3, paged_ms))
+        check(step[0].device * 1e3 >= paged_ms > 0,
+              f"obs: CUDA-event device {step[0].device * 1e3:.4f} ms < the "
+              f"profiler's paged kernels {paged_ms:.4f} ms in its step")
+    sched.run()
+    served += reqs
+    sched.set_profile(0)
+    counts = read_counts()
+    st = sched.stats
+    captured = sched._tf.engine.capture.stats["graphs"] - graphs0
+    sched.events.detach(viewer)
+    sched.events.detach(sink)
+    sched.events.detach(tracer)
+    sink.close()
+    viewer.close()
+    compiled = ((st["iterations"] - st["traced_iterations"])
+                - (st0["iterations"] - st0["traced_iterations"]))
+    check(counts["paged_attention"] == compiled * cfg.n_layers
+          and compiled > 0, f"obs paged launches {counts['paged_attention']}"
+          f" != {compiled} compiled decode steps x {cfg.n_layers}")
+    check(all(t == toks["off"][0] for ts in toks.values() for t in ts),
+          "obs: greedy tokens with the observability layer on differ from "
+          "the tokens with it off")
+    events = list(viewer.events)
+    profs = check_profiles("obs serving", events,
+                           ("kernel.slot_decode_paged",))
+    gen = sum(len(r.out_tokens) for r in served)
+    hist = registry.histograms
+    check(hist["ttft_ms"].count == len(served),
+          f"obs: registry TTFT count {hist['ttft_ms'].count} != "
+          f"{len(served)} requests")
+    check(hist["ttft_ms"].count + hist["token_latency_ms"].count == gen,
+          f"obs: registry token count != {gen} tokens generated")
+    for r in served:
+        rec = tracer.trace(r.rid)
+        check(rec and rec[0]["type"] == "RequestSubmit"
+              and rec[-1]["type"] == "RequestRetire"
+              and sum(x["type"] == "RequestToken" for x in rec)
+              == len(r.out_tokens), f"obs: request {r.rid} trace incomplete")
+    names = scrape_metrics(registry)
+    check({"terra_ttft_ms_count", "terra_token_latency_ms_bucket",
+           "terra_segment_device_us_count"} <= names,
+          f"obs: /metrics lacks the serving histograms: {sorted(names)[:8]}")
+    loaded = load_jsonl(jsonl)
+    check(len(loaded) == len(events),
+          f"obs: JSONL holds {len(loaded)} of {len(events)} events")
+    retired = [e.rid for e in events if type(e) is T.RequestRetire]
+    t0 = time.perf_counter()
+    check(report.main([jsonl]) == 0, "obs.report failed")
+    n_trace = check_timeline(jsonl + ".trace.json", retired)
+    report_s = time.perf_counter() - t0
+    log("obs table: " + json.dumps({
+        "decode_ms_a_step": {a: round(v[0], 4) for a, v in arms.items()},
+        "turns_ms": {a: [round(v[0], 4) for v in t]
+                     for a, t in turns.items()},
+        "steps": {a: v[1] for a, v in arms.items()},
+        "tracing_ratio_on": round(arms["off"][0] / arms["on"][0], 4),
+        "tracing_ratio_sampled": round(arms["off"][0] / arms["sampled"][0],
+                                       4),
+        "ttft_ms_registry": {q: round(snap["ttft_ms"][q], 3)
+                             for q in ("p50", "p99")},
+        "ttft_ms_scheduler": {q: round(pct(ttft, q), 3)
+                              for q in ("p50", "p99")},
+        "tpot_ms_registry": {q: round(snap["token_latency_ms"][q], 3)
+                             for q in ("p50", "p99")},
+        "tpot_ms_scheduler": {q: round(pct(tpot, q), 3)
+                              for q in ("p50", "p99")},
+        "sampled_decode_device_ms": round(float(np.median(
+            [e.device for e in profs])) * 1e3, 4),
+        "sampled_decode_dispatch_ms": round(float(np.median(
+            [e.dispatch for e in profs])) * 1e3, 4),
+        "profiled_steps_device_vs_paged_ms": [
+            [round(a, 4), round(b, 4)] for a, b in per_step],
+        "sampled_segments": len(profs),
+        "graphs_captured_in_window": captured,
+        "events": len(events), "trace_events": n_trace,
+        "report_s": round(report_s, 2), "requests": len(served),
+        "tokens": gen, "launches": counts}))
+    sched.close()
+    del sched
+    release()
+
+    # the scoring program through function(profile=N, optimize="all")
+    from repro_torch.core.events import ListProcessor
+    step = llama_score_program(core, cfg, params, SCORE_BATCH, SCORE_SEQ,
+                               optimize="all", profile=OBS_SCORE_PROFILE)
+    lp = step.engine.events.attach(ListProcessor())
+    zero_counts()
+    kinds, cap = [], step.engine.capture.stats
+    for i in range(6):
+        before = (step.stats.get("traced_iterations", 0), cap["warmups"],
+                  cap["graphs"])
+        score_call(step, cfg, i)
+        step.wait()
+        # what each call ran: traced, the graphs' eager warm-up, their
+        # capture (a sampled capture times the capture), or replays
+        kinds.append("traced" if step.stats["traced_iterations"] > before[0]
+                     else "capture" if cap["graphs"] > before[2]
+                     else "warm-up" if cap["warmups"] > before[1]
+                     else "replay")
+    counts = read_counts()
+    st = step.stats
+    compiled = st["iterations"] - st["traced_iterations"]
+    check(step.phase == "co-execution", f"obs scoring phase {step.phase}")
+    check(counts["flash_attention"] == compiled * cfg.n_layers
+          and counts["rmsnorm"] == compiled * (2 * cfg.n_layers + 1)
+          and compiled > 0, f"obs scoring launches {counts} for {compiled} "
+          f"compiled calls")
+    profs = check_profiles("obs scoring", lp.events,
+                           ("kernel.attention", "kernel.rms_norm"))
+    log("obs scoring segments (sampled every "
+        f"{OBS_SCORE_PROFILE} calls):\n" + report.segment_table(lp.events))
+    log("obs scoring: " + json.dumps({
+        "sampled_segments_with_kernels": len(profs),
+        "calls": kinds, "sampled_calls": [kinds[e.iter_id] for e in profs],
+        "device_ms": [round(e.device * 1e3, 3) for e in profs],
+        "dispatch_ms": [round(e.dispatch * 1e3, 3) for e in profs],
+        "launches": counts, "compiled_calls": compiled}))
+    step.close()
+    del step, params
+    release()
+
+
+# ---- persist: boots and a scheduler checkpoint in child processes --------
+
+PERSIST_REQS = (12, 16, 256, 32, 64)    # phase 3's traffic
+PERSIST_FIRST = (4, 16, 256, 16, 32)    # each boot's first requests
+PERSIST_SCORE_CALLS = 4
+PERSIST_CKPT_STEPS = 24                 # scheduler steps before the save
+BOOT_KEYS = ("retraces", "segments_recompiled", "warm_families",
+             "aot_loads", "artifact_hits", "artifact_misses",
+             "artifacts_stored", "traced_iterations", "iterations")
+
+
+class _FirstSkeleton:
+    """A processor that keeps the clock of the first co-executed
+    iteration's start (the time to the co-execution phase)."""
+
+    def __init__(self):
+        self.ts = None
+
+    def process(self, e):
+        if self.ts is None and type(e).__name__ == "IterationStart" \
+                and e.mode == "skeleton":
+            self.ts = e.ts
+
+    def close(self):
+        pass
+
+
+def persist_requests(cfg, which):
+    n, lo, hi, nlo, nhi = PERSIST_FIRST if which == "first" \
+        else PERSIST_REQS
+    return make_requests(cfg, n, seed=5 if which == "first" else 0,
+                         prompt_lo=lo, prompt_hi=hi, new_lo=nlo, new_hi=nhi)
+
+
+def boot_child(cfg, params, out):
+    """A boot: llama3-8b served by the co-executed paged scheduler (the
+    first requests time the boot — a cold boot traces their first decode
+    step, eager and unfused, a warm one hydrates it — then the equality
+    set runs compiled in both), then scored through ``function`` with
+    the kernels pass."""
+    import repro_torch.core as core
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                        **SERVE_KW)
+    first = sched.events.attach(_FirstSkeleton())
+    boot, reqs = persist_requests(cfg, "first"), persist_requests(cfg, "eq")
+    zero_counts()
+    t0 = time.perf_counter()
+    for r in boot:
+        r.arrival_time = t0
+    sched.serve(boot)
+    boot_wall = time.perf_counter() - t0
+    sched.serve(reqs)
+    st = sched.stats
+    compiled = st["iterations"] - st["traced_iterations"]
+    out["serve"] = {
+        "tokens": [r.out_tokens for r in reqs],
+        "boot_tokens": [r.out_tokens for r in boot],
+        "wall_s": boot_wall,
+        "ttft_s": min(r.first_token_time for r in boot) - t0,
+        "coexec_s": None if first.ts is None else first.ts - t0,
+        "stats": {k: st.get(k) for k in BOOT_KEYS},
+        "launches_per_step": read_counts()["paged_attention"] / compiled,
+        "capture": dict(sched._tf.engine.capture.stats)}
+    sched.close()
+    del sched
+    release()
+
+    step = llama_score_program(core, cfg, params, SCORE_BATCH, SCORE_SEQ,
+                               optimize="all")
+    first = step.engine.events.attach(_FirstSkeleton())
+    zero_counts()
+    scores, t0 = [], time.perf_counter()
+    for i in range(PERSIST_SCORE_CALLS):
+        scores.append(score_call(step, cfg, i).tolist())
+        if i == 0:
+            t_score = time.perf_counter() - t0
+    step.wait()
+    st = step.stats
+    compiled = st["iterations"] - st["traced_iterations"]
+    counts = read_counts()
+    out["score"] = {
+        "scores": scores, "first_score_s": t_score,
+        "wall_s": time.perf_counter() - t0,
+        "coexec_s": None if first.ts is None else first.ts - t0,
+        "stats": {k: st.get(k) for k in BOOT_KEYS} | {"phase": step.phase},
+        "launches_per_call": {k: counts[k] / compiled
+                              for k in ("flash_attention", "rmsnorm")},
+        "capture": dict(step.engine.capture.stats)}
+    step.close()
+
+
+def ckpt_child(cfg, params, out, path, role):
+    """Role "ckpt": the equality set submitted, PERSIST_CKPT_STEPS
+    scheduler steps, then a checkpoint; role "resume": the checkpoint
+    restored into a fresh scheduler, run to the end.  Both warm-boot from
+    the boots' store, so every decode step runs compiled, as the
+    uninterrupted run's do after its first requests."""
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    ck = os.path.join(path, "sched")
+    t0 = time.perf_counter()
+    if role == "ckpt":
+        sched = ContinuousBatchingScheduler(cfg, params, optimize=KERNELS,
+                                            **SERVE_KW)
+        reqs = persist_requests(cfg, "eq")
+        for r in reqs:
+            sched.submit(r)
+        sched.run(max_steps=PERSIST_CKPT_STEPS)
+        out["in_flight"] = sched.pool.active_count
+        out["queued"] = len(sched.queue)
+        t0 = time.perf_counter()
+        sched.checkpoint(ck)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = dir_bytes(ck)
+        out["tokens"] = {r.rid: list(r.out_tokens or []) for r in reqs}
+    else:
+        sched = ContinuousBatchingScheduler.restore(ck, cfg, params)
+        out["restore_s"] = time.perf_counter() - t0
+        tracked = {r.rid: r for _, r in sched.pool.active_items()}
+        tracked.update({r.rid: r for r in sched.queue._queue})
+        zero_counts()
+        sched.run()
+        out["tokens"] = {rid: r.out_tokens for rid, r in tracked.items()}
+        out["paged_launches"] = read_counts()["paged_attention"]
+    st = sched.stats
+    out["stats"] = {k: st.get(k) for k in BOOT_KEYS} | {
+        "checkpoint_restores": st.get("checkpoint_restores", 0)}
+    sched.close()
+
+
+def persist_child(role, path) -> int:
+    """One child process of phase persist, under the parent's
+    ``$TERRA_CACHE_DIR``: a boot, or one side of the scheduler
+    checkpoint.  Prints one JSON line."""
+    t_start = time.perf_counter()
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("llama3-8b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t_start}
+    if role == "boot":
+        boot_child(cfg, params, out)
+    else:
+        ckpt_child(cfg, params, out, path, role)
+    out["proc_s"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_child(cache_dir, role, label, path=""):
+    env = {**os.environ, "TERRA_CACHE_DIR": cache_dir}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--persist-child", role, path], env=env, cwd=HERE,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"persist {label} exited {p.returncode}:"
+          f"\n{p.stderr[-4000:]}")
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    out["spawn_s"] = wall
+    return out
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def check_boots(cold, warm, art):
+    import numpy as np
+    for part in ("serve", "score"):
+        c, w = cold[part]["stats"], warm[part]["stats"]
+        check(c["artifacts_stored"] > 0 and c["warm_families"] == 0,
+              f"persist cold {part}: {c}")
+        check(w["retraces"] == 0 and w["segments_recompiled"] == 0
+              and w["warm_families"] >= 1 and w["aot_loads"] >= 1
+              and w["artifact_hits"] > 0, f"persist warm {part}: {w}")
+    check(warm["serve"]["tokens"] == cold["serve"]["tokens"],
+          "persist: warm tokens differ from the cold run's")
+    # the calls both boots ran compiled (the cold boot traced its first,
+    # eager and unfused, the warm one hydrated it)
+    traced = cold["score"]["stats"]["traced_iterations"]
+    cs, ws = (np.asarray(b["score"]["scores"]) for b in (cold, warm))
+    diff = float(np.max(np.abs(ws[traced:] - cs[traced:])))
+    check(diff <= 1e-6, f"persist: warm scores differ by {diff:.3e}")
+    check(warm["serve"]["launches_per_step"]
+          == cold["serve"]["launches_per_step"]
+          and warm["score"]["launches_per_call"]
+          == cold["score"]["launches_per_call"],
+          "persist: kernel launches per compiled call differ warm vs cold")
+    table = {"artifact_bytes": art, "max_abs_score_diff": diff,
+             "traced_vs_hydrated_first_calls_diff": float(np.max(np.abs(
+                 ws[:traced] - cs[:traced]))),
+             "first_requests_tokens_equal":
+                 warm["serve"]["boot_tokens"] == cold["serve"]["boot_tokens"]}
+    for name, b in (("cold", cold), ("warm", warm)):
+        table[name] = {
+            "ttft_s": round(b["serve"]["ttft_s"], 3),
+            "serve_coexec_s": b["serve"]["coexec_s"]
+            and round(b["serve"]["coexec_s"], 3),
+            "first_requests_wall_s": round(b["serve"]["wall_s"], 3),
+            "first_score_s": round(b["score"]["first_score_s"], 3),
+            "score_coexec_s": b["score"]["coexec_s"]
+            and round(b["score"]["coexec_s"], 3),
+            "score_wall_s": round(b["score"]["wall_s"], 3),
+            "graphs_captured": (b["serve"]["capture"]["graphs"],
+                                b["score"]["capture"]["graphs"]),
+            "serve_stats": b["serve"]["stats"],
+            "score_stats": b["score"]["stats"],
+            "launches": (b["serve"]["launches_per_step"],
+                         b["score"]["launches_per_call"]),
+            "init_s": round(b["init_s"], 2), "proc_s": round(b["proc_s"], 2),
+            "spawn_s": round(b["spawn_s"], 2)}
+    log("persist boots: " + json.dumps(table))
+
+
+def phase_persist():
+    """Warm boots and a scheduler checkpoint (child processes sharing one
+    ``$TERRA_CACHE_DIR``), then an engine checkpoint."""
+    import tempfile
+    import numpy as np
+    from repro_torch import core, programs
+    from repro_torch.configs import get_config
+    release()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="terra-cache-") as cache, \
+            tempfile.TemporaryDirectory(prefix="terra-ckpt-") as work:
+        cold = spawn_child(cache, "boot", "cold boot")
+        art = dir_bytes(cache)
+        warm = spawn_child(cache, "boot", "warm boot")
+        check_boots(cold, warm, art)
+        saved = spawn_child(cache, "ckpt", "checkpoint", work)
+        resumed = spawn_child(cache, "resume", "restore", work)
+    walls = {"boots_s": round(time.perf_counter() - t0, 1)}
+    check(saved["in_flight"] > 0, "persist: no request in flight at the "
+          "checkpoint")
+    for side in (saved, resumed):
+        check(side["stats"]["traced_iterations"] == 0
+              and side["stats"]["retraces"] == 0,
+              f"persist: a checkpoint side traced: {side['stats']}")
+    done = {int(k): v for k, v in saved["tokens"].items()}
+    done.update({int(k): v for k, v in resumed["tokens"].items()})
+    check([done[k] for k in sorted(done)] == cold["serve"]["tokens"],
+          "persist: the restored scheduler's tokens differ from an "
+          "uninterrupted run's")
+    st = resumed["stats"]
+    compiled = st["iterations"] - st["traced_iterations"]
+    layers = get_config("llama3-8b").n_layers
+    check(resumed["paged_launches"] == compiled * layers and compiled > 0,
+          f"persist: paged launches after the restore "
+          f"{resumed['paged_launches']} != {compiled} compiled steps x "
+          f"{layers}")
+    log("persist scheduler checkpoint: " + json.dumps({
+        "in_flight": saved["in_flight"], "queued": saved["queued"],
+        "bytes": saved["bytes"], "save_s": round(saved["save_s"], 3),
+        "restore_s": round(resumed["restore_s"], 3),
+        "paged_launches_after_restore": resumed["paged_launches"],
+        "restores": st["checkpoint_restores"],
+        "ckpt_side": saved["stats"], "resume_side": st}))
+
+    # an engine checkpoint of one of the ten programs (its SGD assigns
+    # Variables): the restored engine's losses equal the donor's own
+    step, _ = programs.REGISTRY["gpt2"]("terra")
+    tf = core.function(step)
+    for i in range(8):
+        float(tf(i))
+    with tempfile.TemporaryDirectory(prefix="terra-ckpt-") as d:
+        t0 = time.perf_counter()
+        tf.save_checkpoint(d)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(d)
+        want = [float(tf(i)) for i in range(8, 16)]
+        tf.close()
+        tf = core.function(step)       # a fresh engine, the same Variables
+        t0 = time.perf_counter()
+        tf.restore_checkpoint(d)
+        restore_s = time.perf_counter() - t0
+    got = [float(tf(i)) for i in range(8, 16)]
+    tf.close()
+    rel = float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+    check(rel <= 1e-6, f"persist: restored losses {got} != {want}")
+    log("persist engine checkpoint (gpt2 program): " + json.dumps({
+        "bytes": nbytes, "save_s": round(save_s, 4),
+        "restore_s": round(restore_s, 4), "max_rel_diff": rel,
+        "losses": got}))
+    log(f"persist walls (s): {json.dumps(walls)}")
+    release()
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also time steady-state decode (kernel vs gather "
                          "path) and profile it, the scoring programs and "
                          "mamba2 serving into chiprun_out/")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the build "
+                         "(a partial run: no result lines, for bring-up)")
+    ap.add_argument("--persist-child", nargs=2, default=None,
+                    metavar=("ROLE", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3531,6 +4195,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    if args.persist_child:          # a child process of phase persist
+        try:
+            return persist_child(*args.persist_child)
+        except SmokeFailure as e:
+            print(f"chip_smoke: persist child: FAIL: {e}", file=sys.stderr)
+            return 1
 
     try:
         from repro_torch.kernels import build
@@ -3582,6 +4252,8 @@ def main() -> int:
             ("capture", phase_capture),
             ("families", lambda: phase_families(rows, profile_dir)),
             ("cross", lambda: phase_cross(rows)),
+            ("obs", lambda: phase_obs(os.path.join(HERE, "chiprun_out"))),
+            ("persist", phase_persist),
         ]
         if args.profile:
             phases += [("profile", lambda: phase_profile(profile_dir)),
@@ -3589,6 +4261,11 @@ def main() -> int:
                         lambda: phase_mamba2_profile(profile_dir)),
                        ("train-profile",
                         lambda: phase_train_profile(profile_dir))]
+        if args.only:
+            names = args.only.split(",")
+            check(set(names) <= {n for n, _ in phases},
+                  f"--only: unknown phases {names}")
+            phases = [(n, r) for n, r in phases if n in names]
         walls = {}
         for name, run in phases:
             t0 = time.perf_counter()
@@ -3596,6 +4273,9 @@ def main() -> int:
             walls[name] = round(time.perf_counter() - t0, 1)
             log(f"phase {name}: {walls[name]} s")
         log(f"phase walls: {json.dumps(walls)}")
+        if args.only:
+            log("chip_smoke: partial run (--only), no result")
+            return 0
         # a row's launches are its own shape's on a main path of this
         # run, zeroed just before it; a row in OFF_PATH says 0 and why
         for row in rows:

@@ -72,10 +72,13 @@ class TerraFunction:
     dispatch the compiled segment directly — ``fn`` is not executed — with
     every ``steady_probe``-th call forced through the full walker path.
 
-    ``cache_dir`` (the persistent artifact store, DESIGN.md §14),
-    ``save_checkpoint``/``restore_checkpoint`` and ``profile`` (sampled
-    device-time attribution, §15) raise ``NotImplementedError`` until the
-    port's persistence and observability slices; all are off by default.
+    ``cache_dir`` (or ``$TERRA_CACHE_DIR``) enables the persistent artifact
+    store (core/persist/, DESIGN.md §14): traced graphs and each compiled
+    segment's plan are written to disk and hydrated on the next process
+    start, so a warm boot reaches co-execution with zero retraces and zero
+    segment recompiles (on a card the CUDA graphs are captured anew).
+    ``save_checkpoint``/``restore_checkpoint`` persist the engine's
+    Variable buffers and iteration counter for exact continuation.
 
     ``device`` is where the engine's variables, feeds and segments live:
     ``None`` means the CUDA card.
@@ -87,10 +90,6 @@ class TerraFunction:
                  steady_state: int = 0, steady_probe: int = 64,
                  cache_dir: Optional[str] = None, profile: int = 0,
                  device=None):
-        if profile:
-            raise NotImplementedError(
-                "profile (sampled device-time attribution) arrives with "
-                "the port's observability slice")
         self.fn = fn
         self.engine = TerraEngine(lazy=lazy, seed=seed,
                                   min_covered=min_covered,
@@ -143,9 +142,8 @@ class TerraFunction:
         self.engine.sync()
 
     def save_checkpoint(self, path: str) -> None:
-        """Variable buffers + iteration state for exact continuation
-        (core/persist/checkpoint.py): raises until the port's persistence
-        slice."""
+        """Persist Variable buffers + iteration state for exact
+        continuation in a fresh process (core/persist/checkpoint.py)."""
         self.engine.save_checkpoint(path)
 
     def restore_checkpoint(self, path: str) -> None:
@@ -170,9 +168,17 @@ def function(fn: Callable = None, *, lazy: bool = False, seed: int = 0,
     ``"none"`` (compile the trace verbatim, the pre-pass behaviour), or an
     explicit tuple of pass names.  ``None`` defers to ``$TERRA_OPTIMIZE``.
 
-    ``cache_dir`` (warm boots, DESIGN.md §14) and ``profile`` (sampled
-    device-time attribution, §15) wait for later slices of the port and
-    raise ``NotImplementedError`` when set.
+    ``cache_dir`` enables the persistent artifact store for warm boots
+    (DESIGN.md §14); ``None`` defers to ``$TERRA_CACHE_DIR`` (unset: off).
+
+    ``profile`` (opt-in, default 0 = off) samples device-time attribution
+    every ``profile``-th iteration (DESIGN.md §15): on a sampled iteration
+    the GraphRunner thread times each segment and emits a
+    ``SegmentProfile`` event splitting host dispatch time from device
+    time.  On a CUDA card the device time is the elapsed time between two
+    CUDA events recorded on the current stream around the segment call;
+    on the CPU it is the call's host wall.  Requires a structured event
+    processor to be attached; non-sampled iterations stay zero-overhead.
 
     ``device`` (default ``None``: the CUDA card) is where the engine runs;
     without a card the call raises unless ``device="cpu"`` is passed.

@@ -4,7 +4,7 @@ A processor is anything with ``process(event)`` / ``close()``.  Processors
 compose: attach any number to one :class:`EventStream`; each sees every
 structured event in emission order (emission is serialized by the stream).
 The contract is deliberately small so drivers and benchmarks can bring
-their own — the ones below cover the repo's needs:
+their own — the four below cover the repo's needs:
 
 * :class:`CountersProcessor` — the always-on flat counter dict; the
   stream's ``inc``/``add`` fast path writes into it directly, so its
@@ -13,15 +13,17 @@ their own — the ones below cover the repo's needs:
 * :class:`TimingProcessor` — per-step and per-segment host-time breakdown
   (dispatch / fetch-wait / runner occupancy), replacing the benchmarks'
   private accumulators.
+* :class:`RequestTraceProcessor` — one JSON-serializable causal trace per
+  serving request (submit → admit → prefill → tokens → retire).
+* :class:`JsonlSink` — buffered JSONL export of the full stream; the
+  artifact the schema validator (schema.py) checks in CI.
 * :class:`ListProcessor` — in-memory capture, for tests and ad-hoc
   debugging.
-
-The per-request trace processor and the JSONL sink wait for the port's
-observability slice.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.events import types as T
@@ -136,3 +138,63 @@ class TimingProcessor(Processor):
             "runner_stall_ms": round(self.runner_stall_s * 1e3, 3),
             "idle_waits": self.idle_waits,
         }
+
+
+class RequestTraceProcessor(Processor):
+    """One causal trace per serving request, keyed by ``rid``.
+
+    A trace is the ordered list of this request's lifecycle events
+    (submit → admit → prefill → token* → retire); ``trace()``/``pop()``
+    return them as JSON-serializable records with the stream clock's
+    timestamps.  Events buffer as-is and serialize only on access — an
+    emitted event is never mutated afterwards, and per-token dict
+    building would otherwise dominate the tracing cost the bench gates.
+    Retired traces stay available until ``pop()``/``reset()`` so a
+    driver can export and drop them incrementally."""
+
+    def __init__(self):
+        self.traces: Dict[int, List[Any]] = {}
+
+    def process(self, event) -> None:
+        rid = getattr(event, "rid", None)
+        if rid is not None:
+            self.traces.setdefault(rid, []).append(event)
+
+    def trace(self, rid: int) -> List[Dict[str, Any]]:
+        # imported here: schema imports types, which this module imports
+        from repro_torch.core.events.schema import event_to_dict
+        return [event_to_dict(e) for e in self.traces.get(rid, [])]
+
+    def pop(self, rid: int) -> List[Dict[str, Any]]:
+        out = self.trace(rid)
+        self.traces.pop(rid, None)
+        return out
+
+    def reset(self) -> None:
+        self.traces = {}
+
+
+class JsonlSink(Processor):
+    """Buffered JSONL export: one ``{"type": ..., "ts": ..., ...}`` object
+    per line, in emission order.  The per-event cost is ONE list append —
+    an emitted event is never mutated afterwards, so serialization
+    (event_to_dict + json.dumps) safely defers to ``flush``/``close``;
+    this is the path the bench's ≤2 % tracing-overhead gate measures."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._events: List[Any] = []
+
+    def process(self, event) -> None:
+        self._events.append(event)
+
+    def flush(self) -> None:
+        from repro_torch.core.events.schema import event_to_dict
+        if self._events:
+            with open(self.path, "a") as f:
+                f.write("\n".join(json.dumps(event_to_dict(e))
+                                  for e in self._events) + "\n")
+            self._events = []
+
+    def close(self) -> None:
+        self.flush()

@@ -19,13 +19,13 @@ ChainDispatcher so historical import paths keep working.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import ops as ops_mod
+from repro_torch.core.device import SegmentTimer
 from repro_torch.core.events import emit as ev
 from repro_torch.core.trace import FeedRef, Ref, VarRef
 from repro_torch.core.executor.dispatch import Dispatcher, SegmentDispatcher
@@ -166,7 +166,7 @@ class ChainDispatcher(Dispatcher):
                 else fetch_futures[(p[1], p[2])].result() if p[0] == "fetch"
                 else iter_env[(p[1], p[2])] for p in ext_plan)
             if profile:
-                pt0 = time.perf_counter()
+                timer = SegmentTimer(self.store.device)
             try:
                 outs = fn(var_vals, feeds, exts)
             except Exception as exc:        # noqa: BLE001
@@ -178,11 +178,8 @@ class ChainDispatcher(Dispatcher):
                 # sampled device-time attribution (DESIGN.md §15); the
                 # chain index is its trace-ordinal start, matching the
                 # SegmentDispatch "chain" event
-                pt1 = time.perf_counter()
-                self.store.synchronize()
                 ev.segment_profile(self.events, self.iter_id, "chain",
-                                   start, pt1 - pt0,
-                                   time.perf_counter() - pt0)
+                                   start, *timer.stop())
             for (ordv, v) in zip(produced, outs):
                 chain_env[ordv] = v
                 futures[ordv].set_result(v)

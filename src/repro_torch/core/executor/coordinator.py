@@ -35,6 +35,7 @@ from repro_torch.core.events import emit as ev
 from repro_torch.core.graphgen import GraphProgram
 from repro_torch.core.passes import observe_iteration, resolve_pipeline, run_passes
 from repro_torch.core.passes.analysis import FeedObservations, FetchObservations
+from repro_torch.core.persist.warmboot import open_persist
 from repro_torch.core.tensor import TerraTensor, Variable
 from repro_torch.core.trace import Trace
 from repro_torch.core.tracegraph import TraceGraph, roll_loops
@@ -61,10 +62,6 @@ class TerraEngine(PythonRunnerOps, VariableOps):
                  strict_feeds: bool = True, optimize=None,
                  cache_dir: Optional[str] = None, cache_scope: str = "",
                  device=None):
-        if cache_dir:
-            raise NotImplementedError(
-                "cache_dir (the persistent artifact store, core/persist/) "
-                "arrives with the port's persistence slice")
         # every buffer, feed and segment of this engine lives here
         self.device = resolve_device(device)
         # the instrumentation substrate: counters + structured events
@@ -93,9 +90,10 @@ class TerraEngine(PythonRunnerOps, VariableOps):
 
         self._fallback = DivergenceHandler(self.runner, self.store,
                                            self.events)
-        # the persistent artifact store (core/persist/, DESIGN.md §14) and
-        # $TERRA_CACHE_DIR arrive with the persistence slice
-        self.persist = None
+        # persistent artifact store (core/persist/, DESIGN.md §14)
+        self.persist = open_persist(cache_dir, self.events, cache_scope,
+                                    self)
+        self.seg_cache.persist = self.persist
         self.fm = FamilyManager(max_families, self.events, self.seg_cache,
                                 persist=self.persist)
         self.family = None
@@ -326,14 +324,15 @@ class TerraEngine(PythonRunnerOps, VariableOps):
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
-        """Engine checkpoints (core/persist/checkpoint.py in the reference)
-        arrive with the port's persistence slice."""
-        raise NotImplementedError(
-            "engine checkpoints arrive with the port's persistence slice")
+        """Snapshot VariableStore buffers + iteration state to a directory
+        (core/persist/checkpoint.py); a fresh process restores with
+        :meth:`restore_checkpoint` and continues where this one stopped."""
+        from repro_torch.core.persist import save_engine
+        save_engine(self, path)
 
     def restore_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(
-            "engine checkpoints arrive with the port's persistence slice")
+        from repro_torch.core.persist import restore_engine
+        restore_engine(self, path)
 
     # ------------------------------------------------------------------
     def sync(self):

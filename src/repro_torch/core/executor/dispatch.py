@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import SegmentTimer
 from repro_torch.core.events import emit as ev
 from repro_torch.core.trace import Ref, Trace
 from repro_torch.core.executor.walker import Walker
@@ -183,7 +184,7 @@ class SegmentDispatcher(Dispatcher):
                     stats["donated_bytes"] += sum(b.nbytes for b in don_in)
                 carries = tuple(iter_env[k] for k in plan.carries_in)
                 if profile:
-                    pt0 = time.perf_counter()
+                    timer = SegmentTimer(store.device)
                 try:
                     var_out, fetches, carries_out = sp.fn(
                         don_in, keep_in, feeds, sels, trips, carries)
@@ -197,12 +198,8 @@ class SegmentDispatcher(Dispatcher):
                     # the dispatch call returns as soon as the device
                     # enqueues; blocking here — on the runner thread, off
                     # the imperative thread — exposes device time
-                    pt1 = time.perf_counter()
-                    store.synchronize()
-                    ev.segment_profile(
-                        self.events, self.iter_id, "segment", si,
-                        pt1 - pt0, time.perf_counter() - pt0,
-                        plan.kernel_ops)
+                    ev.segment_profile(self.events, self.iter_id, "segment",
+                                       si, *timer.stop(), plan.kernel_ops)
                 for vid, v in zip(plan.var_writes, var_out):
                     buffers[vid] = v
                 for k, v in zip(plan.carries_out, carries_out):

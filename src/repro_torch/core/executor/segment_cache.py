@@ -88,7 +88,7 @@ def _items_sig(gp, sp, items, R) -> Tuple:
     return tuple(out)
 
 
-def segment_signature(gp, sp) -> Tuple:
+def segment_signature(gp, sp, remap=None) -> Tuple:
     """Structural identity of one segment's compiled function.
 
     Node uids are **canonicalized** to dense segment-local ids assigned in
@@ -101,8 +101,10 @@ def segment_signature(gp, sp) -> Tuple:
     and feed positions, var-id lists, global selector/trip slot indices)
     is kept in raw form, and everything shape-dependent (out avals, feed
     avals) stays in the key — equal canonical signatures therefore imply
-    the same computation with the same calling convention."""
-    remap: Dict[int, int] = {}
+    the same computation with the same calling convention.  ``remap``
+    (optional, empty) receives the uid -> canonical id map."""
+    if remap is None:
+        remap = {}
 
     def R(uid: int) -> int:
         r = remap.get(uid)

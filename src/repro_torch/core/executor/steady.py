@@ -35,6 +35,7 @@ import time
 from concurrent.futures import Future
 from typing import Any, List, Optional, Tuple
 
+from repro_torch.core.device import SegmentTimer
 from repro_torch.core.events import emit as ev
 from repro_torch.core.pytree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.core.tensor import TerraTensor
@@ -255,7 +256,7 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
         if don_in:
             stats["donated_bytes"] += sum(b.nbytes for b in don_in)
         if profile:
-            pt0 = time.perf_counter()
+            timer = SegmentTimer(store.device)
         try:
             var_out, fetches, _ = sp.fn(don_in, keep_in, feeds,
                                         _EMPTY_I32, _EMPTY_I32, ())
@@ -265,10 +266,7 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
                     f.set_exception(e)
             raise
         if profile:
-            pt1 = time.perf_counter()
-            store.synchronize()
-            ev.segment_profile(events, iter_id, "steady", 0,
-                               pt1 - pt0, time.perf_counter() - pt0,
+            ev.segment_profile(events, iter_id, "steady", 0, *timer.stop(),
                                dp.kernel_ops)
         for vid, v in zip(dp.var_writes, var_out):
             buffers[vid] = v

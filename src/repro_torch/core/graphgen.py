@@ -85,10 +85,26 @@ class SegProg:
     don_var_ids: List[int] = dataclasses.field(default_factory=list)
     keep_var_ids: List[int] = dataclasses.field(default_factory=list)
     owned_writes: List[int] = dataclasses.field(default_factory=list)
-    # liveness: env keys to drop after each top-level item
-    frees: List[Tuple[Key, ...]] = dataclasses.field(default_factory=list)
     signature: Any = None            # structural key for the segment cache
+    # uid -> canonical segment-local id, filled with the signature (the
+    # persist layer writes AOT artifacts in canonical ids, aot.py)
+    canon: Dict[int, int] = dataclasses.field(default_factory=dict)
     plan: "DispatchPlan" = None      # precomputed dispatch layout (§4.4)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentBuild:
+    """What :meth:`GraphProgram._segment_fn` needs beyond the graph and
+    the segment's IO contract: the item list, the liveness (env keys to
+    drop after each top-level item), whether every op may be captured,
+    and the Case Select / Loop Cond slots the segment reads on the host.
+    Computed by :meth:`GraphProgram.segment_build`, or decoded from a
+    persisted AOT artifact on a warm boot (core/persist/aot.py)."""
+    items: list
+    frees: Tuple[Tuple[Key, ...], ...]
+    capturable: bool
+    sel_slots: Tuple[int, ...]
+    trip_slots: Tuple[int, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,8 +259,6 @@ class GraphProgram:
 
         # ---- donation analysis + compilation (through the segment cache) --
         self._analyze_donation()
-        for sp in self.seg_progs:
-            sp.frees = self._liveness(sp)
         self.donatable_var_ids = {v for sp in self.seg_progs
                                   for v in sp.don_var_ids}
         # ---- dispatch plans: bake the per-iteration layout (§4.4) --------
@@ -273,10 +287,22 @@ class GraphProgram:
                 # when coalescing or folding reshaped its neighbours
                 sp.signature = (jit_each, self.capture is not None,
                                 tuple(sp.owned_writes),
-                                segment_signature(self, sp))
-                sp.fn = seg_cache.get_or_build(
-                    sp.signature,
-                    lambda sp=sp: self._compile_segment(sp, jit_each))
+                                segment_signature(self, sp, sp.canon))
+                persist = seg_cache.persist
+                if persist is not None:
+                    # warm boot (DESIGN.md §14): consult the on-disk AOT
+                    # artifact before compiling; a fresh compile writes
+                    # its artifact back into the store
+                    sp.fn = seg_cache.get_or_build(
+                        sp.signature,
+                        lambda sp=sp: persist.build_segment(self, sp,
+                                                            jit_each),
+                        loader=lambda sp=sp: persist.load_segment(
+                            self, sp, jit_each))
+                else:
+                    sp.fn = seg_cache.get_or_build(
+                        sp.signature,
+                        lambda sp=sp: self._compile_segment(sp, jit_each))
             else:
                 sp.fn = self._compile_segment(sp, jit_each)
 
@@ -417,6 +443,22 @@ class GraphProgram:
     def _compile_segment(self, sp: SegProg, jit_each: bool):
         # ``jit_each`` stays part of the segment signature for parity with
         # the reference; ``self.capture`` already folds it in
+        return self._segment_fn(sp, self.segment_build(sp))
+
+    def segment_build(self, sp: SegProg) -> SegmentBuild:
+        """The compile-time analyses of one segment (liveness,
+        capturability, host slots)."""
+        sels, trips = self._host_slots(sp.items)
+        return SegmentBuild(sp.items, tuple(self._liveness(sp)),
+                            self._capturable(sp.items), tuple(sels),
+                            tuple(trips))
+
+    def _segment_fn(self, sp: SegProg, build: SegmentBuild):
+        """The segment callable: ``build``'s items run under
+        ``torch.no_grad()`` with its liveness, wrapped for capture when
+        the engine captures and every op may be captured."""
+        items, frees = build.items, build.frees
+
         @torch.no_grad()
         def seg_fn(don_var_in: tuple, keep_var_in: tuple, feeds: tuple,
                    sels, trips, carries_in: tuple):
@@ -432,7 +474,7 @@ class GraphProgram:
                 "sels": sels,
                 "trips": trips,
             }
-            self._interp(sp.items, sp, ctx, sp.frees)
+            self._interp(items, sp, ctx, frees)
             var_env = ctx["var_env"]
             fetches = [ctx["fetch_buf"][k] for k in sp.fetch_keys]
             carries_out = [env[k] for k in sp.carries_out]
@@ -444,9 +486,9 @@ class GraphProgram:
 
         if self.capture is None:
             return seg_fn
-        if not self._capturable(sp.items):
+        if not build.capturable:
             return self.capture.eager(seg_fn)
-        sel_slots, trip_slots = self._host_slots(sp.items)
+        sel_slots, trip_slots = build.sel_slots, build.trip_slots
 
         def host(don, keep, feeds, sels, trips, carries):
             return (tuple(int(sels[j]) for j in sel_slots),

@@ -6,10 +6,8 @@
     paged.py      — paged arena layout + block-table allocation
     lifecycle.py  — arrivals, length bucketing, retirement, streaming
     pool_ops.py   — serve.slot_prefill / serve.slot_decode DL operations
-    telemetry.py  — the scheduler's counters and events on the stream
-
-Quiescent checkpoint/restore (the reference's checkpoint.py) arrives with
-the port's persistence slice.
+    telemetry.py  — the scheduler's counters, events and metrics surface
+    checkpoint.py — quiescent checkpoint/restore for exact continuation
 
 See DESIGN.md §11/§12 for the architecture and shape-stability argument.
 """

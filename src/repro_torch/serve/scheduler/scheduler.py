@@ -10,8 +10,9 @@ admission prefills splice device buffers through fenced closures
 ``use_terra=False`` is the plain-PyTorch scheduling baseline (op bodies
 called directly, pool donated, a CUDA graph per step shape on a card).
 ``device`` (default: the CUDA card) holds the params, the pool and every
-step.  ``checkpoint``/``restore`` and ``enable_metrics`` arrive with the
-port's persistence and observability slices.  See DESIGN.md §11/§12/§14."""
+step.  ``checkpoint``/``restore`` persist a quiescent scheduler (the paged
+arena copied to the host); ``profile``, ``set_profile`` and
+``enable_metrics`` drive repro_torch.obs.  See DESIGN.md §11-§12, §14-§15."""
 
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.core.ops import op_impl
 from repro_torch.core.pytree import tree_flatten
 from repro_torch.core.tensor import TerraTensor, Variable
 from repro_torch.core.trace import as_tensor, to_numpy
+from repro_torch.serve.scheduler import checkpoint as ckpt
 from repro_torch.serve.scheduler import pool_ops
 from repro_torch.serve.scheduler import telemetry as tm
 from repro_torch.serve.scheduler.lifecycle import (ArrivalQueue, CallbackQueue,
@@ -41,11 +43,6 @@ from repro_torch.serve.scheduler.planner import (DecodePlan, IdlePlan,
 from repro_torch.serve.scheduler.slots import SlotPool
 
 
-def _later(feature: str, slice_name: str):
-    raise NotImplementedError(
-        f"{feature} arrives with the port's {slice_name} slice")
-
-
 class ContinuousBatchingScheduler:
     """Slot-pooled continuous-batching serving engine (DESIGN.md §11/§12)."""
 
@@ -53,16 +50,13 @@ class ContinuousBatchingScheduler:
                  max_len: int = 256, temperature: float = 0.0,
                  use_terra: bool = True, optimize: Optional[str] = None,
                  prefill_batch_cap: Optional[int] = None,
-                 bucket_floor: int = 8,
-                 page_size: Optional[int] = None,
+                 bucket_floor: int = 8, page_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  steady_state: int = 8, steady_probe: int = 128,
                  profile: int = 0,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
         pool_ops.check_supported(cfg)
-        if profile:
-            _later("profile (sampled device-time attribution)", "obs")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
@@ -106,7 +100,7 @@ class ContinuousBatchingScheduler:
             self._tf = terra_function(self._step, optimize=optimize,
                                       steady_state=steady_state,
                                       steady_probe=steady_probe,
-                                      device=dev)
+                                      profile=profile, device=dev)
             self._prefill_fn = op_impl("serve.slot_prefill")
         else:
             self._cache_leaves = list(leaves0)
@@ -126,6 +120,12 @@ class ContinuousBatchingScheduler:
             self._tf.engine.events if use_terra else None, clock)
         self.sched_stats = self.events.counters
         self._rid = 0
+        self._ckpt_kw = dict(       # the recipe checkpoint() persists
+            max_slots=max_slots, max_len=max_len, temperature=temperature,
+            use_terra=use_terra, optimize=optimize,
+            prefill_batch_cap=prefill_batch_cap, bucket_floor=bucket_floor,
+            page_size=ps or None, num_blocks=nb or None, profile=profile,
+            steady_state=steady_state, steady_probe=steady_probe)
 
     # ------------------------------------------------------------------
     # public surface
@@ -188,22 +188,22 @@ class ContinuousBatchingScheduler:
     def stats(self) -> dict:
         return tm.merged_stats(self)
 
-    # sampled profiling and live metrics (DESIGN.md §15) arrive with the
-    # port's observability slice, checkpoints (§14) with its persistence
-    # slice; until then these raise (profiling off is the only cadence)
     def set_profile(self, every: int) -> None:
-        if every:
-            _later("profile (sampled device-time attribution)", "obs")
+        """Runtime-mutable sampled profiling cadence (DESIGN.md §15)."""
+        tm.set_profile(self, every)
 
     def enable_metrics(self, registry=None):
-        _later("enable_metrics", "obs")
+        """Attach a live metrics processor; returns its registry (§15)."""
+        return tm.enable_metrics(self, registry)
 
     def checkpoint(self, path: str) -> None:
-        _later("scheduler checkpoints", "persistence")
+        """Persist quiescent state for cross-process continuation (§14)."""
+        ckpt.save_scheduler(self, path)
 
     @classmethod
     def restore(cls, path: str, cfg, params, **overrides):
-        _later("scheduler checkpoints", "persistence")
+        """Rebuild a checkpointed scheduler: decoding resumes exactly."""
+        return ckpt.restore_scheduler(cls, path, cfg, params, **overrides)
 
     def close(self) -> None:
         if self.use_terra:

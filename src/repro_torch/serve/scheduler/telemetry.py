@@ -124,3 +124,28 @@ def harvest_done(sch, kind: str, t0: float) -> None:
 def idle(es: EventStream, wait) -> None:
     if es.on:
         es.emit(T.SchedulerIdle(float(wait or 0.0)))
+
+
+# --------------------------------------------------------------------------
+# observability surface (repro_torch.obs, DESIGN.md §15)
+# --------------------------------------------------------------------------
+
+def set_profile(sch, every: int) -> None:
+    """(Re)set the sampled device-time profiling cadence — mutable at
+    runtime so a serving process can turn attribution on for a window
+    and back off without restarting.  A ``use_terra=False`` scheduler has
+    no engine to sample: a no-op there, as in the reference."""
+    if sch.use_terra:
+        sch._tf.engine.profile_every = int(every)
+
+
+def enable_metrics(sch, registry=None):
+    """Attach a live :class:`repro_torch.obs.MetricsProcessor` to the
+    scheduler's event stream; returns the registry (serve it with
+    ``repro_torch.obs.http.MetricsServer`` for Prometheus scrapes)."""
+    from repro_torch.obs import MetricsProcessor
+    mp = MetricsProcessor(registry)
+    mp.registry.attach_counters(sch.sched_stats)
+    sch.events.attach(mp)
+    sch.metrics = mp.registry
+    return mp.registry

@@ -106,11 +106,32 @@ def test_cross_attention_modules_are_scanned_and_import_no_jax():
                              r"\bfrom repro\.|\bimport repro\b", src), path
 
 
+def test_persist_and_obs_modules_are_scanned_and_import_no_jax():
+    """The persistence and observability modules (core/persist/, obs/,
+    the scheduler checkpoint, the event schema) are among the scanned
+    files, and none of them names JAX, ml_dtypes or the reference."""
+    files = _port_files()
+    want = [os.path.join(PORT, "core", "persist", n) for n in (
+        "__init__.py", "aot.py", "checkpoint.py", "codec.py", "keys.py",
+        "store.py", "warmboot.py")]
+    want += [os.path.join(PORT, "obs", n) for n in (
+        "__init__.py", "http.py", "metrics.py", "report.py",
+        "trace_viewer.py")]
+    want += [os.path.join(PORT, "serve", "scheduler", "checkpoint.py"),
+             os.path.join(PORT, "core", "events", "schema.py")]
+    for path in want:
+        assert path in files, path
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"\bimport jax|\bfrom jax\b|\bml_dtypes\b|"
+                             r"\bfrom repro\.|\bimport repro\b", src), path
+
+
 def test_executor_passes_scheduler_events_kernels_modules_stay_small():
     """The reference's decomposition contract (tests/test_executor.py),
     held for the port's counterparts."""
     for pkg in ("core/executor", "core/passes", "serve/scheduler",
-                "core/events", "kernels"):
+                "core/events", "kernels", "obs"):
         pkg_dir = os.path.join(PORT, pkg)
         for name in os.listdir(pkg_dir):
             if name.endswith(".py"):

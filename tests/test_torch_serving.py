@@ -147,18 +147,26 @@ def test_port_use_terra_false_equals_co_execution(llama, paged):
     assert {k: pst[k] for k in SCHED_KEYS} == {k: st[k] for k in SCHED_KEYS}
 
 
-def test_scheduler_deferred_features_raise(llama):
+def test_scheduler_deferred_features_raise(llama, tmp_path):
+    """The scheduler's checkpoints, metrics and sampled profiling do not
+    raise: each works on the CPU (tests/test_torch_persist.py and
+    tests/test_torch_obs.py hold them against the reference)."""
     _, tcfg, _, tp = llama
     s = ContinuousBatchingScheduler(tcfg, tp, max_slots=2, max_len=32,
                                     device="cpu")
-    for call in (lambda: s.checkpoint("x"), s.enable_metrics,
-                 lambda: s.set_profile(1)):
-        with pytest.raises(NotImplementedError):
-            call()
+    s.checkpoint(str(tmp_path / "ck"))
+    assert s.enable_metrics() is s.metrics
+    s.set_profile(1)
+    assert s._tf.engine.profile_every == 1
     s.close()
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingScheduler(tcfg, tp, max_slots=2, max_len=32,
+    s = ContinuousBatchingScheduler(tcfg, tp, max_slots=2, max_len=32,
                                     profile=4, device="cpu")
+    assert s._tf.engine.profile_every == 4
+    s.close()
+    s = ContinuousBatchingScheduler.restore(str(tmp_path / "ck"), tcfg, tp,
+                                            device="cpu")
+    assert s.stats["checkpoint_restores"] == 1
+    s.close()
 
 
 # tests/test_scheduler.py:192-205 (lens [8, 8, 11], two slots), and a mix
