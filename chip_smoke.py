@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase (needs one H100)
     python3 chip_smoke.py --profile       # + steady-state decode timing
     python3 chip_smoke.py --only obs,persist   # the build and two phases
+    python3 chip_smoke.py --only launch,parallel
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -89,8 +90,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               Then 2 layers at the same width in float32 (TF32 off), 8
               steps each from one step-0 checkpoint: card terra, card
               eager (``use_terra=False``) and CPU losses within 1e-3
-              relative.  Last, mamba2 training on the card raises
-              ``NotImplementedError`` (the SSD kernel has no backward).
+              relative.  (mamba2 trains on the card in phase 16.)
 11. capture — captured segments (``core/capture.py``) against
               ``disable_jit()``.  Equality, float32, TF32 off: llama3-8b
               decode (4 layers; co-executed with the kernels and
@@ -200,7 +200,34 @@ Phases, in order; any failure exits non-zero and prints no result:
               uninterrupted run's; and an engine checkpoint of the gpt2
               program: the restored engine's losses equal the donor's.
               Checkpoint bytes, save and restore walls.
-16. profile — only with ``--profile``: steady-state decode time per step,
+16. launch  — ``python -m repro_torch.launch.train`` (``main``, in a
+              child process of this script) trains mamba2-130m at
+              published width and depth (24 layers, d 768, vocab 50280,
+              bf16, remat) on 8 x 2048 tokens (8 chunks of 256) through
+              co-execution: 20 steps and a checkpoint, then a second
+              child resumes at step 20 ("auto-resumed from step 20") and
+              takes 10 more.  The loss must fall; each step's forward
+              launches the SSD-scan kernel once a layer and its remat
+              recompute once more (launches == 48 x steps, counters
+              zeroed just before, read just after, in the child); the
+              median step time (each step waited for) and the peak
+              memory.  Then ``SSDScan`` at that shape against all-plain
+              autograd (f32 and bf16: the forward within SSD_TOL, the
+              gradients within 1e-3) and its kernel row
+              ``ssd_scan[mamba2 training 8x2048]`` (time a call by CUDA
+              events, bound, plain time, the first child's launches).  Then 2 layers in
+              float32 (TF32 off), the launcher in this process: steps
+              21-30 of a resumed run equal an unbroken 30-step run's
+              within 1e-3 (2 x 2048 tokens), and 8 steps on the card
+              (kernel forward) equal 8 on the CPU (plain) within
+              PARITY_RTOL (1 x 512), both from one step-0 checkpoint.
+17. parallel — the parallel layer on a one-process NCCL group:
+              ``dp_allreduce`` bf16 and int8 on CUDA tensors (mean +
+              residual gives the gradient back) and deepseek-moe-16b at
+              published width (2 of 28 layers, bf16) with
+              ``moe_impl="shard_map"`` on a (1, 1) mesh against the
+              ``moe_block`` path.
+18. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -212,7 +239,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               trainer under the profiler (device time by kernel class
               per step, busy share); each family's captured steady
               decode (device time by class: matrix products, the paged
-              kernels, the rest; busy share).
+              kernels, the rest; busy share); five steps of the mamba2
+              launcher's trainer (8 x 2048 tokens, device time by class
+              a step: products, the SSD kernels, elementwise).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2146,7 +2175,6 @@ def phase_train():
     import tempfile
     import numpy as np
     import torch
-    from repro_torch.configs import smoke_config
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import model as M
     from repro_torch.train import checkpoint as ckpt
@@ -2252,20 +2280,6 @@ def phase_train():
         check(rel <= PARITY_RTOL, f"train parity vs {name}: {rel:.3e}")
     release()
 
-    mcfg = smoke_config("mamba2-130m")
-    tr = Trainer(mcfg, OptConfig(), batch=2, seq_len=32, log_every=1)
-    try:
-        tr.train(1, verbose=False)
-    except NotImplementedError as e:
-        check("ROADMAP.md" in str(e), f"mamba2 raised without the ROADMAP "
-              f"item: {e}")
-        log(f"train mamba2 on the card raises NotImplementedError: {e}")
-    else:
-        raise SmokeFailure("mamba2 training on the card did not raise")
-    finally:
-        tr._iteration.close()
-    release()
-
 
 def phase_train_profile(out_dir):
     """Ten co-executed steps of the 100m trainer (after 12 warm-up steps)
@@ -2301,6 +2315,45 @@ def phase_train_profile(out_dir):
                         ("elementwise", ("elementwise", "vectorized"), 10,
                          "step"),
                         ("reductions", ("reduce",), 10, "step")])
+    tr._iteration.close()
+    del tr
+    release()
+
+
+def phase_launch_profile(out_dir):
+    """Five co-executed steps of the launcher's mamba2-130m trainer (full
+    width and depth, 8 x 2048 tokens, after 6 warm-up steps) under
+    torch.profiler: device time by kernel and class per step (matrix
+    products, the SSD kernels, elementwise, reductions), the busy share.
+    Writes the table to ``out_dir``/profile_launch.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    tr = Trainer(get_config("mamba2-130m"), OptConfig(warmup_steps=2,
+                                                      total_steps=30),
+                 batch=8, seq_len=2048, log_every=100)
+    tr.train(6, verbose=False)
+    tr._iteration.wait()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(5, verbose=False)
+        tr._iteration.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, "launch mamba2-130m, 5 co-executed steps", wall,
+                   os.path.join(out_dir, "profile_launch.txt"), 30,
+                   per=[("GEMMs", ("gemm", "nvjet", "cutlass", "xmma"), 5,
+                         "step"),
+                        ("SSD kernels", ("ssd_",), 5, "step"),
+                        ("elementwise", ("elementwise", "vectorized"), 5,
+                         "step"),
+                        ("reductions", ("reduce",), 5, "step"),
+                        ("scans (cumsum)", ("scan", "cumsum"), 5, "step")])
     tr._iteration.close()
     del tr
     release()
@@ -4168,6 +4221,375 @@ def phase_persist():
     log(f"persist walls (s): {json.dumps(walls)}")
     release()
 
+# --------------------------------------------------------------------------
+# phase launch: mamba2-130m trained by the launcher (the SSD kernel's
+# forward with the plain math's backward), and phase parallel
+# --------------------------------------------------------------------------
+
+LAUNCH_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq-len", "2048",
+               "--log-every", "1", "--ckpt-every", "1000",
+               "--total-steps", "30"]
+LAUNCH_STEPS, LAUNCH_RESUME = 20, 10
+# the f32 arms: 2 layers, fewer rows (a later --batch wins)
+LAUNCH_PARITY = ["--layers", "2", "--dtype", "float32", "--batch", "2"]
+LAUNCH_CPU = ["--arch", "mamba2-130m", "--layers", "2", "--dtype", "float32",
+              "--batch", "1", "--seq-len", "512", "--log-every", "1"]
+LAUNCH_CPU_STEPS = 8
+LAUNCH_RTOL = 1e-3          # f32 losses of a resumed run vs an unbroken one
+SSD_TRAIN = (8, 2048)       # the launcher's batch x tokens
+
+
+def run_launcher(argv):
+    """``repro_torch.launch.train.main(argv)`` in this process, its printed
+    lines kept, the SSD-scan launches counted from 0 over the run, and on
+    the card each step waited for (``_SyncedSteps``): the step times, the
+    engine counters and the peak memory.  Returns a dict."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import train as LT
+
+    base = LT.Trainer
+    made = []
+
+    class Timed(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            if self.use_terra and self.device.type == "cuda":
+                self._iteration = _SyncedSteps(self._iteration)
+            made.append(self)
+
+        def train(self, *a, **k):
+            out = super().train(*a, **k)
+            if self.use_terra:
+                self.stats = dict(self._iteration.stats)
+            return out
+
+    cuda = "cpu" not in argv
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    LT.Trainer = Timed
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            LT.main(argv)
+    finally:
+        LT.Trainer = base
+    wall = time.perf_counter() - t0
+    launches = read_counts()["ssd_scan"]
+    tr = made[0]
+    out = {"stdout": buf.getvalue(), "launches": launches, "wall_s": wall,
+           "history": tr.history, "start_step": tr.start_step,
+           "stats": {k: v for k, v in getattr(tr, "stats", {}).items()
+                     if isinstance(v, int)}}
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        it = tr._iteration
+        out["step_ms"] = [t * 1e3 for t in getattr(it, "times", [])]
+    del made, tr
+    release()
+    return out
+
+
+def launch_child(argv_json) -> int:
+    """A child process of phase launch: the launcher on the card, one JSON
+    line of :func:`run_launcher`'s result last."""
+    res = run_launcher(json.loads(argv_json))
+    sys.stdout.write(res["stdout"])
+    print(json.dumps({k: v for k, v in res.items() if k != "stdout"}),
+          flush=True)
+    return 0
+
+
+def spawn_launch(argv, label):
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--launch-child", json.dumps(argv)], cwd=HERE,
+                       capture_output=True, text=True, timeout=400)
+    check(p.returncode == 0, f"launch {label} exited {p.returncode}:\n"
+          f"{p.stderr[-4000:]}")
+    lines = p.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    out["stdout"] = "\n".join(lines[:-1])
+    out["proc_s"] = time.perf_counter() - t0
+    return out
+
+
+def _launch_losses(res):
+    return [l for _, l in res["history"]]
+
+
+def ssd_training_row(launches):
+    """The SSD scan at the launcher's shape (x [8, 2048, 24, 64], N 128):
+    ``SSDScan`` (the kernel forward, the plain math's backward) against
+    all-plain autograd of ``ssd_chunked_plain`` on the card, f32 and bf16
+    — forward within SSD_TOL, every gradient within 1e-3 of its largest
+    (both backwards run the plain math on the same inputs) — then the
+    kernel's time a call (CUDA events, three turns, the median) beside
+    the plain forward's, and the bound.  No single PyTorch call computes
+    the SSD scan."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import SSD_TOL
+    from repro_torch.models.ssm import SSDScan, ssd_chunked_plain
+    B, S = SSD_TRAIN
+    err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        args = ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, dtype, 200,
+                          dtype, strided=False)
+        w = seeded((B, S, MAMBA_H, MAMBA_P), torch.float32, 201)
+        xs = [a.clone().requires_grad_(True) for a in args]
+        n0 = kops.ssd_scan.launches
+        y = SSDScan.apply(*xs, MAMBA_CHUNK, False)
+        got = torch.autograd.grad((y.float() * w).sum(), xs)
+        check(kops.ssd_scan.launches == n0 + 1,
+              "SSDScan did not launch the kernel once")
+        ps = [a.clone().requires_grad_(True) for a in args]
+        yp = ssd_chunked_plain(*ps, MAMBA_CHUNK)
+        want = torch.autograd.grad((yp.float() * w).sum(), ps)
+        e, ok = close_err(y, yp, SSD_TOL[name])
+        check(ok, f"SSDScan forward vs plain at the training shape {name}: "
+              f"{e}")
+        rel = max(float((g.float() - h.float()).abs().max()
+                        / h.float().abs().max()) for g, h in zip(got, want))
+        log(f"ssd_scan training [{B},{S},{MAMBA_H},{MAMBA_P}] N={MAMBA_N} "
+            f"{name}: forward max_abs_err vs plain {e:.3e} (tol "
+            f"{SSD_TOL[name]}); gradients (x, dt, A, B, C) vs all-plain "
+            f"autograd: max rel err {rel:.3e}")
+        check(rel <= 1e-3, f"SSDScan gradients vs plain {name}: {rel}")
+        if dtype == torch.bfloat16:
+            err = e
+        del args, xs, ps, y, yp, got, want
+        release()
+    ins = [ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, torch.bfloat16,
+                      210 + i, torch.bfloat16, strided=True)
+           for i in range(2)]
+    call = rotating([lambda t=t: kops.ssd_scan(*t, chunk=MAMBA_CHUNK)
+                     for t in ins])
+    # a call is ~0.5 ms of device work, far above its launch cost, so
+    # back-to-back CUDA events time it (the profiler's device-time sum
+    # lost most of the kernels' events in some turns); the profiler
+    # gives the split over the three kernels
+    runs = [time_ms(call, 20) for _ in range(3)]
+    ms = sorted(runs)[1]
+    dev, split = device_split(call, 20)
+    plain_ms = time_ms(rotating([
+        lambda t=t: ssd_chunked_plain(*t, MAMBA_CHUNK) for t in ins]), 4)
+    bound, by = ssd_bound_ms(ins[0][0], ins[0][1], ins[0][3], False)
+    log(f"ssd_scan bf16 training [{B},{S},{MAMBA_H},{MAMBA_P}] N={MAMBA_N}: "
+        f"{ms:.5f} ms a call by CUDA events (turns "
+        + ", ".join(f"{d:.5f}" for d in runs)
+        + f"); profiler device time {dev:.5f} ms, per kernel "
+        + "; ".join(f"{k} {v:.5f}" for k, v in split.items())
+        + f"; {ms / bound:.1f}x the bound {bound:.5f} ms ({by}); plain "
+        f"{plain_ms:.4f} ms; no PyTorch library call computes the SSD scan")
+    del ins
+    release()
+    return {"name": f"ssd_scan[mamba2 training {B}x{S}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:21",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_launch(rows):
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    # each forward launches the kernel once a layer; remat ("full")
+    # recomputes each super-block's forward in the backward
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    d = tempfile.mkdtemp(prefix="launch_")
+    try:
+        a = spawn_launch(LAUNCH_ARGS + ["--steps", str(LAUNCH_STEPS),
+                                        "--ckpt-dir", d], "first")
+        b = spawn_launch(LAUNCH_ARGS + ["--steps", str(LAUNCH_RESUME),
+                                        "--ckpt-dir", d], "resume")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for label, res, steps in (("first", a, LAUNCH_STEPS),
+                              ("resume", b, LAUNCH_RESUME)):
+        out = res["stdout"]
+        losses = _launch_losses(res)
+        steady = res["step_ms"][res["stats"]["traced_iterations"]:]
+        med = float(np.median(steady))
+        log(f"launch {label}: " + " | ".join(
+            l for l in out.splitlines() if l.startswith(("launch:", "auto-",
+                                                         "done:"))))
+        log(f"launch {label}: mamba2-130m (24 layers, d 768, vocab 50280, "
+            f"remat {cfg.remat}), 8 x 2048 tokens, steps "
+            f"{res['history'][0][0]}..{res['history'][-1][0]}: median step "
+            f"{med:.2f} ms over {len(steady)} co-executed steps (each "
+            f"waited for; min {min(steady):.2f}, max {max(steady):.2f}), "
+            f"first step {res['step_ms'][0]:.1f} ms, "
+            f"{8 * 2048 / med * 1e3:.0f} tokens/s at the median, "
+            f"max_memory_allocated {res['peak_gib']:.3f} GiB, ssd_scan "
+            f"launches {res['launches']} ({res['launches'] / steps:.1f} a "
+            f"step), process {res['proc_s']:.1f} s, launcher "
+            f"{res['wall_s']:.1f} s")
+        log(f"launch {label} losses: "
+            + json.dumps([round(l, 5) for l in losses]))
+        log(f"launch {label} counters: " + json.dumps(res["stats"]))
+        check("devices=1 mesh=1-device" in out and "done: loss" in out
+              and "terra: {" in out, f"launch {label}: launcher lines "
+              f"missing:\n{out[-2000:]}")
+        check(all(np.isfinite(losses)) and len(losses) == steps,
+              f"launch {label}: losses {losses}")
+        check(res["launches"] == per_step * steps,
+              f"launch {label}: {res['launches']} ssd_scan launches, not "
+              f"{per_step} x {steps}")
+    check(_launch_losses(a)[-1] < _launch_losses(a)[0],
+          "launch: the loss did not fall")
+    check(f"auto-resumed from step {LAUNCH_STEPS}" in b["stdout"]
+          and b["start_step"] == LAUNCH_STEPS
+          and b["history"][0][0] == LAUNCH_STEPS + 1,
+          "launch: the second process did not resume")
+    rows.append(ssd_training_row(a["launches"]))
+
+    # 2 layers in f32 (TF32 off): steps 21-30 of a resumed run against an
+    # unbroken one, then card against CPU
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d1, d2 = tempfile.mkdtemp(prefix="launch_"), tempfile.mkdtemp(
+        prefix="launch_")
+    try:
+        base = LAUNCH_ARGS + LAUNCH_PARITY
+        run_launcher(base + ["--steps", str(LAUNCH_STEPS), "--ckpt-dir", d1])
+        resumed = run_launcher(base + ["--steps", str(LAUNCH_RESUME),
+                                       "--ckpt-dir", d1])
+        whole = run_launcher(base + ["--steps", str(LAUNCH_STEPS
+                                                    + LAUNCH_RESUME)])
+        got = _launch_losses(resumed)
+        want = _launch_losses(whole)[LAUNCH_STEPS:]
+        rel = float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+        log(f"launch resume parity (2 layers, f32, 2 x 2048; "
+            f"{resumed['wall_s']:.1f} s resumed, {whole['wall_s']:.1f} s "
+            f"unbroken): steps 21-30 resumed "
+            f"{json.dumps([round(l, 6) for l in got])} vs unbroken "
+            f"{json.dumps([round(l, 6) for l in want])}: max rel err "
+            f"{rel:.3e} (rtol {LAUNCH_RTOL})")
+        check(rel <= LAUNCH_RTOL, f"launch resume parity: {rel}")
+
+        # every arm resumes one step-0 checkpoint the CPU launcher wrote
+        run_launcher(LAUNCH_CPU + ["--steps", "0", "--device", "cpu",
+                                   "--ckpt-dir", d2])
+        arms = {}
+        for name, dev in (("card", []), ("cpu", ["--device", "cpu"])):
+            d3 = tempfile.mkdtemp(prefix="launch_")
+            try:
+                shutil.copytree(d2, d3, dirs_exist_ok=True)
+                res = run_launcher(LAUNCH_CPU + dev + [
+                    "--steps", str(LAUNCH_CPU_STEPS), "--ckpt-dir", d3])
+            finally:
+                shutil.rmtree(d3, ignore_errors=True)
+            arms[name] = _launch_losses(res)
+            if name == "card":
+                check(res["launches"] == per_step // cfg.n_layers
+                      * 2 * LAUNCH_CPU_STEPS, f"launch card arm: "
+                      f"{res['launches']} ssd_scan launches (2 layers)")
+            log(f"launch parity arm {name} (2 layers, f32, 1 x 512): "
+                f"losses {json.dumps([round(l, 6) for l in arms[name]])} "
+                f"({res['wall_s']:.1f} s)")
+        rel = float(np.max(np.abs(np.asarray(arms["card"]) - arms["cpu"])
+                           / np.abs(arms["cpu"])))
+        log(f"launch parity card (kernel forward) vs cpu (plain): max rel "
+            f"err {rel:.3e} (rtol {PARITY_RTOL})")
+        check(rel <= PARITY_RTOL, f"launch parity card vs cpu: {rel}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+        for p in (d1, d2):
+            shutil.rmtree(p, ignore_errors=True)
+    release()
+
+
+PARALLEL_MOE = (4, 512)          # deepseek-moe-16b tokens: batch x length
+
+
+def phase_parallel():
+    """The parallel layer on one card: a one-process NCCL group.  The
+    compressed data-parallel all-reduce (bf16 and int8) on CUDA tensors —
+    with one rank the mean is the codec's round trip, so mean + residual
+    must give the gradient back — and deepseek-moe-16b at published width
+    (2 of 28 layers, bf16) with ``moe_impl="shard_map"`` on a (1, 1)
+    (data, model) mesh against the ``moe_block`` path."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import model as M
+    from repro_torch.parallel.compression import (dp_allreduce,
+                                                  wire_bytes_saved,
+                                                  zero_residuals)
+    from repro_torch.parallel.sharding import ShardingPolicy, use_policy
+
+    tmp = tempfile.mkdtemp(prefix="nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for({"data": 1})
+        g = {"w": seeded((4096, 1024), torch.float32, 300),
+             "b": seeded((1000,), torch.float32, 301)}
+        for c, tol in (("bf16", 2 ** -8), ("int8", 1 / 127)):
+            red = dp_allreduce(mesh, "data", compression=c)
+            mean, resid = red(g, zero_residuals(g))
+            ms = time_ms(lambda: red(g, zero_residuals(g)), 10)
+            for k in g:
+                check(mean[k].is_cuda and mean[k].dtype == torch.float32,
+                      f"dp_allreduce {c}: {mean[k].device} {mean[k].dtype}")
+                back = float((mean[k] + resid[k] - g[k]).abs().max())
+                err = float((mean[k] - g[k]).abs().max()
+                            / g[k].abs().max())
+                check(back <= 1e-6 and err <= tol,
+                      f"dp_allreduce {c} {k}: mean+resid-g {back}, "
+                      f"rel err {err}")
+            raw, wire = wire_bytes_saved(g, c)
+            log(f"parallel dp_allreduce {c} (NCCL, 1 rank, CUDA tensors "
+                f"{[tuple(v.shape) for v in g.values()]}): mean within "
+                f"{tol:.3g} of the gradient, mean + residual == gradient, "
+                f"{ms:.3f} ms a call; wire bytes {raw} -> {wire}")
+
+        cfg = dc.replace(get_config("deepseek-moe-16b"), n_layers=2)
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        B, S = PARALLEL_MOE
+        tokens = torch.from_numpy(np.random.RandomState(7).randint(
+            0, cfg.vocab, (B, S)).astype(np.int32)).cuda()
+        mesh2 = make_mesh_for({"data": 1, "model": 1})
+        with use_policy(ShardingPolicy(mesh2)), torch.no_grad():
+            ref = M.forward(cfg, params, tokens)
+            got = M.forward(dc.replace(cfg, moe_impl="shard_map"), params,
+                            tokens)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        log(f"parallel moe shard_map vs moe_block: deepseek-moe-16b (2 of "
+            f"28 layers, d 2048, 64 experts top-6 + 2 shared, bf16), "
+            f"{B} x {S} tokens, (1, 1) mesh: max abs err {err:.3e} "
+            f"(logits up to {scale:.3f}; exactly equal: {err == 0.0})")
+        check(bool(torch.isfinite(got.float()).all())
+              and err <= 1e-2 * scale, f"moe shard_map vs moe_block: {err}")
+        del params, ref, got
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    release()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4179,6 +4601,8 @@ def main() -> int:
                          "(a partial run: no result lines, for bring-up)")
     ap.add_argument("--persist-child", nargs=2, default=None,
                     metavar=("ROLE", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--launch-child", default=None, metavar="ARGV",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4201,6 +4625,8 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: persist child: FAIL: {e}", file=sys.stderr)
             return 1
+    if args.launch_child:           # a child process of phase launch
+        return launch_child(args.launch_child)
 
     try:
         from repro_torch.kernels import build
@@ -4254,13 +4680,17 @@ def main() -> int:
             ("cross", lambda: phase_cross(rows)),
             ("obs", lambda: phase_obs(os.path.join(HERE, "chiprun_out"))),
             ("persist", phase_persist),
+            ("launch", lambda: phase_launch(rows)),
+            ("parallel", phase_parallel),
         ]
         if args.profile:
             phases += [("profile", lambda: phase_profile(profile_dir)),
                        ("mamba2-profile",
                         lambda: phase_mamba2_profile(profile_dir)),
                        ("train-profile",
-                        lambda: phase_train_profile(profile_dir))]
+                        lambda: phase_train_profile(profile_dir)),
+                       ("launch-profile",
+                        lambda: phase_launch_profile(profile_dir))]
         if args.only:
             names = args.only.split(",")
             check(set(names) <= {n for n, _ in phases},

@@ -16,9 +16,9 @@ transformer assembly (models/transformer.py).  Kinds:
 
 The schema is the reference's field for field, so a port config compares
 equal to its reference counterpart; field comments give the reference's
-meaning.  The port reads every field (remat policies "full" and "dots";
-``moe_impl`` "shard_map" raises until the parallel slice) but ``unroll``,
-which has no effect: the port runs its loops in Python.
+meaning.  The port reads every field (remat policies "full", "dots" and
+"attn_out"; ``moe_impl`` "shard_map" is ``models/moe_ep.py``) but
+``unroll``, which has no effect: the port runs its loops in Python.
 """
 
 from __future__ import annotations

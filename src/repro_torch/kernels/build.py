@@ -35,6 +35,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 LOGS: Dict[str, str] = {}           # name -> nvcc output of its last build
 _RECORDING = threading.local()      # .rec: this thread's launches, or None
+_CAPTURE_RECS: List[dict] = []      # the records open in this process
 
 
 # head dims the attention kernels are instantiated for; any other D up to
@@ -55,22 +56,37 @@ def head_dim_instance(D: int, what: str) -> int:
 
 def count_launch(wrapper) -> None:
     """One launch of ``wrapper``'s kernel: adds one to ``wrapper.launches``
-    and to the calling thread's record while it has one open."""
+    and to the calling thread's record while it has one open.  A thread
+    with no record of its own whose current stream is being captured
+    (autograd's device thread running a captured backward) counts into
+    the innermost open record: one capture runs at a time."""
     wrapper.launches += 1
     rec = getattr(_RECORDING, "rec", None)
+    if rec is None and _CAPTURE_RECS and _stream_capturing():
+        rec = _CAPTURE_RECS[-1]
     if rec is not None:
         rec[wrapper] = rec.get(wrapper, 0) + 1
 
 
+def _stream_capturing() -> bool:
+    """Whether this thread's current CUDA stream is being captured."""
+    import torch
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 @contextlib.contextmanager
 def recording_launches():
-    """Yield {wrapper: launches} counted by this thread while the block
-    runs (a CUDA graph capture: other threads' launches are not in it)."""
+    """Yield {wrapper: launches} counted by this thread — and by other
+    threads into the stream it captures — while the block runs (a CUDA
+    graph capture: other threads' eager launches are not in it)."""
     prev = getattr(_RECORDING, "rec", None)
     _RECORDING.rec = rec = {}
+    _CAPTURE_RECS.append(rec)
     try:
         yield rec
     finally:
+        _CAPTURE_RECS.remove(rec)
         _RECORDING.rec = prev
 
 

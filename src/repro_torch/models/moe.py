@@ -12,8 +12,8 @@ Every shape here is static (C comes from the token count, never from the
 routing), and nothing reads the device on the host, so a decode step that
 holds this block is captured whole as a CUDA graph.  The products are
 plain ``torch.bmm``: the reference leaves them to XLA, outside any Pallas
-kernel.  Expert parallelism (``moe_impl="shard_map"``) arrives with the
-port's parallel slice.
+kernel.  Expert parallelism (``moe_impl="shard_map"``) is
+``models/moe_ep.py``.
 """
 
 from __future__ import annotations

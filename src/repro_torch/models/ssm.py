@@ -4,7 +4,9 @@ Chunked SSD algorithm: the sequence is split into chunks of length Q;
 within a chunk the output is the quadratic (attention-like) form masked by
 the cumulative decay; across chunks a recurrence carries the state
 [H, P, N].  ``ssd_chunked`` launches the hand-written Hopper SSD-scan
-kernel (``kernels.ops.ssd_scan``) on CUDA tensors; on CPU tensors it runs
+kernel (``kernels.ops.ssd_scan``) on CUDA tensors, under autograd through
+:class:`SSDScan` (the kernel forward; the backward differentiates the
+plain chunked math, as the reference's XLA does); on CPU tensors it runs
 ``ssd_chunked_plain``, the reference's chunked math line for line (the
 kernel's plain version beside ``kernels.ref.ref_ssd``), because a CPU
 tensor means the caller asked for the CPU.  Any other device raises.
@@ -102,22 +104,53 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, chunk: int,
     return y
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD scan as autograd sees it: the forward launches the SSD-scan
+    kernel (``kops.ssd_scan``; its plain version on CPU tensors) and saves
+    only the inputs; the backward recomputes :func:`ssd_chunked_plain`
+    under ``enable_grad`` and returns its gradients.  That is the
+    reference's own gradient: XLA differentiates the plain chunked math,
+    and neither package has a backward kernel.  Nothing here reads the
+    device on the host, so a captured train step holds both passes."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, return_final):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk, ctx.return_final = chunk, return_final
+        ctx.set_materialize_grads(False)
+        return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                             return_final=return_final)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in inputs]
+            out = ssd_chunked_plain(*xs, ctx.chunk, ctx.return_final)
+            outs = out if ctx.return_final else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            wrt = [x for x in xs if x.requires_grad]
+            gs = iter(torch.autograd.grad([o for o, _ in pairs],
+                                          wrt, [g for _, g in pairs],
+                                          allow_unused=True))
+        return tuple(next(gs) if x.requires_grad else None
+                     for x in xs) + (None, None)
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
                 unroll: bool = False):
     """SSD forward (shapes as ``ssd_chunked_plain``).  CUDA tensors launch
-    the SSD-scan kernel, CPU tensors run the plain chunked math; any other
-    device raises.  The kernel has no backward yet, so on CUDA a call that
-    autograd would differentiate raises rather than cut the gradient (CPU
-    training differentiates the plain math).  ``unroll`` (the reference's
-    dry-run switch) is kept only so that the reference's calls carry over;
-    it has no effect."""
+    the SSD-scan kernel, through :class:`SSDScan` when autograd records
+    (the kernel forward, the plain math's gradients); CPU tensors run the
+    plain chunked math; any other device raises.  ``unroll`` (the
+    reference's dry-run switch) is kept only so that the reference's
+    calls carry over; it has no effect."""
     del unroll
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x, dt, A, Bm, Cm)):
-            raise NotImplementedError(
-                "the SSD-scan kernel has no backward yet, so mamba2 trains "
-                "on the CPU only; see ROADMAP.md")
+            return SSDScan.apply(x, dt, A, Bm, Cm, chunk, return_final)
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                              return_final=return_final)
     if x.device.type != "cpu":

@@ -17,8 +17,10 @@ under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
 its scanned body in ``jax.checkpoint`` (the encoder's layers always under
 ``"full"``, as the reference's): policy ``"full"`` keeps only the block's
 input, ``"dots"`` also keeps every matmul output (selective
-checkpointing, the counterpart of ``dots_saveable``).  ``"attn_out"``
-raises until it is ported (``ROADMAP.md``).
+checkpointing, the counterpart of ``dots_saveable``), ``"attn_out"`` keeps
+each block's input and attention output and recomputes the rest, the FFN
+too (two checkpoint regions per attention block: the counterpart of
+``save_only_these_names("attn_out")``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.core.pytree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
 from repro_torch.models.moe import moe_block
+from repro_torch.models.moe_ep import moe_block_ep
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba2_block
 
@@ -244,7 +247,7 @@ def _strip_len(cache):
 
 def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
                   cache_len=None, cache_bt=None, cross_states=None,
-                  causal=True):
+                  causal=True, split_remat=False):
     """One block of kind ``kind``.  Returns (x, new_cache).
 
     Attention caches are stored per layer as {"k","v"} (dense rows) or
@@ -254,9 +257,16 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
     {"conv","ssm"} and RG-LRU caches {"conv","h"}; they take neither.
     A ``cross`` block has no cache (None passes through); its and
     ``dec_attn_cross``'s cross-attention reads ``cross_states``.
+    ``split_remat`` (remat policy ``"attn_out"``, no cache): an attention
+    kind runs as two checkpoint regions, any other kind as one.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
+    if split_remat and kind not in ATTN_KINDS:
+        return ckpt.checkpoint(block_forward, cfg, kind, p, x,
+                               positions=positions,
+                               cross_states=cross_states, causal=causal,
+                               use_reentrant=False)
     if kind == "ssd":
         h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
                                     cfg, cache=cache)
@@ -285,26 +295,45 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
         x = x + h
         x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm3"], x))
         return x, _strip_len(new_cache)
+    if split_remat:
+        # remat policy "attn_out": the attention sub-layer and the FFN are
+        # two checkpoint regions, so the block input and the attention
+        # output are kept and everything else (the FFN too) is recomputed
+        h = ckpt.checkpoint(_attention_half, cfg, kind, p, x, positions,
+                            causal, use_reentrant=False)[0]
+        return ckpt.checkpoint(_ffn_half, cfg, kind, p, x + h,
+                               use_reentrant=False), None
+    h, new_cache = _attention_half(cfg, kind, p, x, positions, causal,
+                                   cache=_with_len(cache, cache_len,
+                                                   cache_bt))
+    return _ffn_half(cfg, kind, p, x + h), _strip_len(new_cache)
+
+
+def _attention_half(cfg, kind, p, x, positions, causal, cache=None):
+    """The self-attention sub-layer of an attention-kind block: its output
+    (the reference's named ``"attn_out"``), with the new cache when one
+    was given."""
     window = {"attn_swa": cfg.window,
               "attn_local": cfg.local_window}.get(kind, 0)
     h, new_cache = attention_block(
         p["attn"], _norm(cfg, p["norm1"], x), cfg, positions=positions,
-        cache=_with_len(cache, cache_len, cache_bt),
-        causal=causal and kind != "enc_attn", window=window)
-    new_cache = _strip_len(new_cache)
-    x = x + h
+        cache=cache, causal=causal and kind != "enc_attn", window=window)
+    return h, new_cache
+
+
+def _ffn_half(cfg, kind, p, x):
+    """The FFN sub-layer (dense, or MoE) with its residual."""
     ff_in = _norm(cfg, p["norm2"], x)
     if kind == "moe":
         if cfg.moe_impl == "shard_map":
-            raise NotImplementedError(
-                "moe_impl='shard_map' (expert parallelism, models/moe_ep.py)"
-                " arrives with the port's parallel slice")
-        return x + moe_block(p["moe"], ff_in, cfg), new_cache
-    return x + L.mlp_swiglu(p["mlp"], ff_in), new_cache
+            return x + moe_block_ep(p["moe"], ff_in, cfg)
+        return x + moe_block(p["moe"], ff_in, cfg)
+    return x + L.mlp_swiglu(p["mlp"], ff_in)
 
 
 def _superblock(cfg, slot_params, x, *, positions, caches=None,
-                cache_len=None, cache_bt=None, cross_states=None):
+                cache_len=None, cache_bt=None, cross_states=None,
+                split_remat=False):
     """Apply one instance of the block pattern.  slot_params/caches are
     per-slot lists (already sliced to this super-block)."""
     new_caches = []
@@ -313,7 +342,8 @@ def _superblock(cfg, slot_params, x, *, positions, caches=None,
         x, nc = block_forward(cfg, kind, slot_params[slot], x,
                               positions=positions, cache=c,
                               cache_len=cache_len, cache_bt=cache_bt,
-                              cross_states=cross_states)
+                              cross_states=cross_states,
+                              split_remat=split_remat)
         new_caches.append(nc)
     return x, new_caches
 
@@ -340,9 +370,11 @@ def _remat(cfg, body, policy=None):
     elif policy == "dots":
         context_fn = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif policy == "attn_out":
+        # checkpoint regions per block inside the body (block_forward)
+        return functools.partial(body, split_remat=True)
     else:
-        raise NotImplementedError(
-            f"remat policy {policy!r} is not ported yet; see ROADMAP.md")
+        raise ValueError(f"unknown remat policy {policy!r}")
 
     def run(*args, **kwargs):
         return ckpt.checkpoint(body, *args, use_reentrant=False,

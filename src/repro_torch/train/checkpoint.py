@@ -15,9 +15,12 @@ Commit protocol: write into ``step_<N>.tmp`` then ``os.rename`` (atomic on
 POSIX) and update ``latest`` — a crash mid-save never corrupts the previous
 checkpoint (fault-tolerance requirement).
 
-Restore places every leaf on its template leaf's device and dtype.  The
-reference's elastic reshard-on-load (``shardings=``) waits for the port's
-parallel slice."""
+Restore places every leaf on its template leaf's device and dtype.
+Elastic restore: ``restore(..., shardings=...)`` places every leaf with
+``distribute_tensor`` on the *current* mesh and placements
+(``parallel.specs.NamedSharding``), so a run checkpointed by one process
+resumes on several and back (reshard-on-load).  Under a mesh the caller
+gathers the full tree (``DTensor.full_tensor``) and one rank writes."""
 
 from __future__ import annotations
 
@@ -124,11 +127,9 @@ def _leaf(arr: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor:
 
 def restore(ckpt_dir: str, step: int, template, *, shardings=None):
     """Restore into the structure of ``template`` (each leaf on its
-    template leaf's device, in its dtype)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "reshard-on-load arrives with the port's parallel slice "
-            "(ROADMAP.md Queue 1, item 8)")
+    template leaf's device, in its dtype).  ``shardings``: optional
+    matching pytree of ``NamedSharding`` (or a single one) — each leaf
+    then becomes a DTensor placed by its sharding (reshard-on-load)."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     with np.load(os.path.join(final, "arrays.npz")) as z:
         host = {k: z[k] for k in z.files}
@@ -141,4 +142,14 @@ def restore(ckpt_dir: str, step: int, template, *, shardings=None):
     _, treedef = tree_flatten(template)
     new_leaves = [_leaf(host[k], manifest["dtypes"][k], tmpl)
                   for k, tmpl in keyed.items()]
+    if shardings is not None:
+        from repro_torch.parallel.specs import NamedSharding, distribute
+        shard_flat = ([shardings] * len(new_leaves)
+                      if isinstance(shardings, NamedSharding)
+                      else [_flatten(shardings).get(k) for k in keyed])
+        if not all(isinstance(s, NamedSharding) for s in shard_flat):
+            raise TypeError("shardings: a NamedSharding or a tree of them "
+                            "matching the template")
+        new_leaves = [distribute(t, sh)
+                      for t, sh in zip(new_leaves, shard_flat)]
     return tree_unflatten(treedef, new_leaves)

@@ -47,7 +47,9 @@ def schedule(cfg: OptConfig, step):
 
 def init(params) -> dict:
     def zeros_f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor param (under a mesh) gives its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
     return {

@@ -341,3 +341,35 @@ def test_cuda_non_capturable_op_runs_eager_and_capture_errors_raise(card):
             bad(x)
     assert bad.engine.capture.stats["graphs"] == 0
     bad.close()
+
+
+def test_a_capture_records_launches_into_its_stream_from_other_threads(
+        monkeypatch):
+    """A thread with no record of its own whose current stream is being
+    captured — autograd's device thread running the backward of a
+    captured train step (the SSD scan's remat recompute) — counts into
+    the open capture's record; a thread not capturing does not."""
+    import threading
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.build import count_launch, recording_launches
+
+    capturing = threading.local()
+    monkeypatch.setattr(build, "_stream_capturing",
+                        lambda: getattr(capturing, "on", False))
+
+    def backward_thread():
+        capturing.on = True
+        count_launch(kops.ssd_scan)
+
+    n0 = kops.ssd_scan.launches
+    with recording_launches() as rec:
+        for target in (backward_thread,
+                       lambda: count_launch(kops.ssd_scan)):
+            t = threading.Thread(target=target)
+            t.start()
+            t.join()
+    assert rec == {kops.ssd_scan: 1}
+    assert kops.ssd_scan.launches - n0 == 2
+    kops.ssd_scan.launches -= 2

@@ -122,7 +122,7 @@ def test_one_train_step_matches_reference(arch):
     assert float(tm["grad_norm"]) > 0
 
 
-@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("policy", ["full", "dots", "attn_out"])
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "recurrentgemma-2b"])
 def test_remat_keeps_moe_and_rglru_gradients(name, policy):
     """Remat over moe and rglru super-blocks (torch.utils.checkpoint, as
@@ -144,3 +144,35 @@ def test_remat_keeps_moe_and_rglru_gradients(name, policy):
             loss, [x for x in xs if x.requires_grad])
     for a, b in zip(grads[False], grads[True]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "deepseek-moe-16b",
+                                  "recurrentgemma-2b"])
+def test_attn_out_remat_matches_reference(name):
+    """Remat policy ``"attn_out"`` (two checkpoint regions per attention
+    block: the attention output kept, the FFN recomputed) against the
+    reference's ``save_only_these_names("attn_out")``: the loss within
+    TOL relative and every gradient within TOL of its leaf's largest."""
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+    kw = dict(remat=True, remat_policy="attn_out", **F32)
+    jcfg = dataclasses.replace(j_smoke(name), **kw)
+    tcfg = dataclasses.replace(t_smoke(name), **kw)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tokens = np.random.RandomState(4).randint(
+        0, jcfg.vocab, (2, 16)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jts.lm_loss(jcfg, p, jnp.asarray(tokens),
+                              jnp.asarray(labels)), has_aux=True)(jp)
+    leaves, td = tree_flatten(params_from_jax(jax.tree.map(np.asarray, jp),
+                                              "cpu"))
+    xs = [t.requires_grad_(True) for t in leaves]
+    loss, _ = tts.lm_loss(tcfg, tree_unflatten(td, xs),
+                          torch.from_numpy(tokens), torch.from_numpy(labels))
+    grads = torch.autograd.grad(loss, xs)
+    _close(loss, jl)
+    want = [np.asarray(g) for g in jax.tree.leaves(jg)]
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert np.abs(g.numpy() - w).max() <= TOL * scale

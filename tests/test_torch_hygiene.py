@@ -127,6 +127,38 @@ def test_persist_and_obs_modules_are_scanned_and_import_no_jax():
                              r"\bfrom repro\.|\bimport repro\b", src), path
 
 
+def test_parallel_and_launch_modules_are_scanned_and_import_no_jax():
+    """The parallel layer, expert-parallel MoE and the launcher are among
+    the scanned files, and none of them names JAX, ml_dtypes or the
+    reference."""
+    files = _port_files()
+    want = [os.path.join(PORT, "parallel", n) for n in (
+        "specs.py", "sharding.py", "compression.py", "pipeline.py")]
+    want += [os.path.join(PORT, "models", "moe_ep.py")]
+    want += [os.path.join(PORT, "launch", n) for n in ("mesh.py",
+                                                        "train.py")]
+    for path in want:
+        assert path in files, path
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"\bimport jax|\bfrom jax\b|\bml_dtypes\b|"
+                             r"\bfrom repro\.|\bimport repro\b", src), path
+
+
+def test_launcher_raises_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path,
+                                                          capsys):
+    from repro_torch.launch import train as launch
+    argv = ["--arch", "llama3-8b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq-len", "8", "--log-every", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(argv)
+    tr = launch.main(argv + ["--device", "cpu", "--no-terra"])
+    assert tr.device.type == "cpu" and len(tr.history) == 2
+    out = capsys.readouterr().out
+    assert "launch: arch=llama3-8b-smoke devices=1 mesh=1-device" in out
+    assert "done: loss" in out
+
+
 def test_executor_passes_scheduler_events_kernels_modules_stay_small():
     """The reference's decomposition contract (tests/test_executor.py),
     held for the port's counterparts."""

@@ -117,8 +117,17 @@ def test_param_counts_equal_the_reference():
 
 
 def test_shard_map_moe_raises_naming_the_parallel_slice():
+    """(Name kept from when expert parallelism was a stub that raised.)
+    ``moe_impl="shard_map"`` is ``models/moe_ep.py`` now; without a mesh
+    it is the ``moe_block`` path, as the reference's ``moe_block_ep``
+    falls back, so the logits equal the default impl's exactly.  The
+    mesh path runs in ``tests/test_torch_parallel.py``."""
     _, tcfg = _cfgs("mixtral-8x22b", moe_impl="shard_map")
     params = TM.init_params(tcfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TM.forward(tcfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, tcfg.vocab, (2, 8)).astype(np.int32))
+    got = TM.forward(tcfg, params, tokens)
+    want = TM.forward(dataclasses.replace(tcfg, moe_impl="pjit"), params,
+                      tokens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -33,6 +33,9 @@ from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 TOL_CHUNKED = 2e-4
+TOL_GRAD = 1e-4
+# one chunk, a prime length, N 128 over 3 chunks, P 128 with a ragged chunk
+GRAD_CASES = [SSD_SWEEP[i] for i in (0, 4, 9, 11)]
 TOL_MODEL = 1e-4
 F32 = dict(dtype="float32", param_dtype="float32")
 
@@ -369,18 +372,67 @@ def test_ssd_chunked_differentiates_the_plain_math_on_the_cpu():
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in gs)
 
 
+@pytest.mark.parametrize("return_final", [False, True],
+                         ids=["y", "y+h_final"])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_ssd_scan_function_gradients_match_reference(case, return_final,
+                                                     jax_ref):
+    """``SSDScan`` (the kernel's forward, the plain chunked math's
+    gradients) on the CPU path — its forward is the kernel's plain
+    version there — against the reference's ``jax.grad`` of
+    ``ssd_chunked``, every input, f32, within TOL_GRAD relative to each
+    gradient's largest value."""
+    jax, jnp = jax_ref
+    from repro.models import ssm as JS
+    arrs = _ssd_inputs(case, seed=5)
+    chunk = case[-1]
+    r = np.random.RandomState(6)
+    wy = r.randn(*arrs[0].shape).astype(np.float32)
+    wh = r.randn(case[0], case[2], case[3], case[4]).astype(np.float32)
+
+    def j_loss(*xs):
+        out = JS.ssd_chunked(*xs, chunk, return_final=return_final)
+        if return_final:
+            return jnp.sum(out[0] * wy) + jnp.sum(out[1] * wh)
+        return jnp.sum(out * wy)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in arrs))
+    xs = [_t(a).requires_grad_(True) for a in arrs]
+    out = TS.SSDScan.apply(*xs, chunk, return_final)
+    loss = ((out[0] * _t(wy)).sum() + (out[1] * _t(wh)).sum()
+            if return_final else (out * _t(wy)).sum())
+    got = torch.autograd.grad(loss, xs)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        scale = float(np.abs(w).max())
+        assert np.abs(g.numpy() - w).max() <= TOL_GRAD * scale
+
+
 @pytest.mark.cuda
 def test_cuda_ssd_chunked_raises_under_autograd(card):
-    """The SSD kernel has no backward: on the card a call that autograd
-    would differentiate raises instead of cutting the gradient; without
-    grad the kernel runs."""
-    case = SSD_SWEEP[0]
-    t = _typed(_ssd_inputs(case), "float32", card)
-    x = t[0].clone().requires_grad_(True)
-    before = kops.ssd_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.ssd_chunked(x, *t[1:], case[-1])
-    assert kops.ssd_scan.launches == before
-    with torch.no_grad():
-        TS.ssd_chunked(x, *t[1:], case[-1])
-    assert kops.ssd_scan.launches == before + 1
+    """(Name kept from when the kernel had no backward and this raised.)
+    On the card a call that autograd differentiates goes through
+    ``SSDScan``: the forward launches the kernel once (no plain
+    fallback) and matches the no-grad kernel call exactly; the gradients
+    of every input equal all-plain autograd of ``ssd_chunked_plain``."""
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        case = SSD_SWEEP[0]
+        t = _typed(_ssd_inputs(case), dtype, card)
+        xs = [a.clone().requires_grad_(True) for a in t]
+        before = kops.ssd_scan.launches
+        y = TS.ssd_chunked(*xs, case[-1])
+        assert kops.ssd_scan.launches == before + 1
+        with torch.no_grad():
+            y0 = TS.ssd_chunked(*t, case[-1])
+        torch.testing.assert_close(y, y0, rtol=0, atol=0)
+        w = torch.randn(y.shape, generator=torch.Generator(card)
+                        .manual_seed(0), device=card).to(y.dtype)
+        got = torch.autograd.grad((y.float() * w.float()).sum(), xs)
+        assert kops.ssd_scan.launches == before + 2
+        ps = [a.clone().requires_grad_(True) for a in t]
+        yp = TS.ssd_chunked_plain(*ps, case[-1])
+        want = torch.autograd.grad((yp.float() * w.float()).sum(), ps)
+        for g, wg in zip(got, want):
+            scale = wg.float().abs().max()
+            assert (g.float() - wg.float()).abs().max() <= tol * scale
