@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile       # + steady-state decode timing
     python3 chip_smoke.py --only obs,persist   # the build and two phases
     python3 chip_smoke.py --only launch,parallel
+    python3 chip_smoke.py --only dryrun,examples
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -222,12 +223,28 @@ Phases, in order; any failure exits non-zero and prints no result:
               (kernel forward) equal 8 on the CPU (plain) within
               PARITY_RTOL (1 x 512), both from one step-0 checkpoint.
 17. parallel — the parallel layer on a one-process NCCL group:
-              ``dp_allreduce`` bf16 and int8 on CUDA tensors (mean +
-              residual gives the gradient back) and deepseek-moe-16b at
+              ``dp_allreduce`` bf16 on CUDA tensors (mean + residual
+              gives the gradient back) and deepseek-moe-16b at
               published width (2 of 28 layers, bf16) with
               ``moe_impl="shard_map"`` on a (1, 1) mesh against the
               ``moe_block`` path.
-18. profile — only with ``--profile``: steady-state decode time per step,
+18. dryrun  — ``repro_torch.launch.dryrun.run_cell`` (no card: ``meta``
+              tensors over a fake 256-rank group) for llama3-8b x
+              decode_32k and mamba2-130m x train_4k on the production
+              mesh: status ``ok`` and ``torch.cuda.memory_allocated()``
+              unmoved; the analytic roofline terms logged.  Then the dry
+              run at phase launch's own shape (mamba2-130m, 1 x 1 mesh,
+              8 x 2048, remat full): its compute and memory terms and
+              peak bytes beside the launch phase's measured median step
+              and peak (logged, no gate).
+19. examples — ``examples/{serve_continuous,quickstart,coexec_showcase}
+              _torch.py``'s ``main()`` on the card: serve_continuous
+              retires every request in co-execution with no retrace;
+              quickstart's and coexec_showcase's printed losses and
+              phases equal the same program's on the CPU (losses within
+              1e-3 as printed; coexec_showcase's iterations 0-7, where
+              its noise is 0.0) and so do their int stats.
+20. profile — only with ``--profile``: steady-state decode time per step,
               kernel path against gather path in turns, and a
               torch.profiler window (device time by kernel, busy share,
               the paged kernels' device time per decode step); phase 5
@@ -4422,6 +4439,8 @@ def phase_launch(rows):
         losses = _launch_losses(res)
         steady = res["step_ms"][res["stats"]["traced_iterations"]:]
         med = float(np.median(steady))
+        if label == "first":
+            LAUNCH_MEASURED.update(step_ms=med, peak_gib=res["peak_gib"])
         log(f"launch {label}: " + " | ".join(
             l for l in out.splitlines() if l.startswith(("launch:", "auto-",
                                                          "done:"))))
@@ -4519,7 +4538,7 @@ PARALLEL_MOE = (4, 512)          # deepseek-moe-16b tokens: batch x length
 
 def phase_parallel():
     """The parallel layer on one card: a one-process NCCL group.  The
-    compressed data-parallel all-reduce (bf16 and int8) on CUDA tensors —
+    compressed data-parallel all-reduce (bf16) on CUDA tensors —
     with one rank the mean is the codec's round trip, so mean + residual
     must give the gradient back — and deepseek-moe-16b at published width
     (2 of 28 layers, bf16) with ``moe_impl="shard_map"`` on a (1, 1)
@@ -4545,7 +4564,7 @@ def phase_parallel():
         mesh = make_mesh_for({"data": 1})
         g = {"w": seeded((4096, 1024), torch.float32, 300),
              "b": seeded((1000,), torch.float32, 301)}
-        for c, tol in (("bf16", 2 ** -8), ("int8", 1 / 127)):
+        for c, tol in (("bf16", 2 ** -8),):
             red = dp_allreduce(mesh, "data", compression=c)
             mean, resid = red(g, zero_residuals(g))
             ms = time_ms(lambda: red(g, zero_residuals(g)), 10)
@@ -4588,6 +4607,136 @@ def phase_parallel():
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     release()
+
+
+# phase launch's measured median step (ms) and peak (GiB), for phase dryrun
+LAUNCH_MEASURED = {}
+DRYRUN_CELLS = (("llama3-8b", "decode_32k"), ("mamba2-130m", "train_4k"))
+
+
+def dryrun_terms(rec) -> str:
+    from repro_torch.launch import dryrun as D
+    r, mem = rec["roofline"], rec["memory"]
+    return (f"compute {r['compute_s'] * 1e3:.4f} ms, memory "
+            f"{r['memory_s'] * 1e3:.4f} ms, collective "
+            f"{r['collective_s'] * 1e3:.4f} ms "
+            f"({r['per_coll']['n_collectives']:.0f} collectives), dominant "
+            f"{r['dominant']}, FLOPs {r['flops']:.4e} (model "
+            f"{r['model_flops_per_device']:.4e}), peak "
+            f"{mem['total_nonalias_bytes'] / 2 ** 30:.3f} GiB a card "
+            f"(fits {rec['fits_hbm']}), {D.n_resharded(rec)} ops re-run "
+            f"by the counter on a replicated input")
+
+
+def phase_dryrun():
+    """The analytic dry run in this process: two production cells, then
+    phase launch's own shape beside its measurement.  The dry run's
+    numbers are analytic (the H100 data sheet's rates), not measured."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun as D
+
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = D.run_cell(arch, shape, "single", verbose=False)
+        check(rec["status"] == "ok",
+              f"dryrun {arch} x {shape}: {rec.get('error')}")
+        log(f"dryrun {arch} x {shape} x single ({rec['n_chips']} cards, "
+            f"analytic): {dryrun_terms(rec)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    name = "launch_8x2048"
+    SHAPES[name] = ShapeConfig(name, "train", 2048, 8)
+    try:
+        t0 = time.perf_counter()
+        rec = D.run_cell("mamba2-130m", name, "single", verbose=False,
+                         opts={"mesh_shape": (1, 1), "microbatches": 1})
+    finally:
+        del SHAPES[name]
+    check(rec["status"] == "ok", f"dryrun at the launch shape: "
+          f"{rec.get('error')}")
+    measured = ("median step {step_ms:.2f} ms, max_memory_allocated "
+                "{peak_gib:.3f} GiB".format(**LAUNCH_MEASURED)
+                if LAUNCH_MEASURED else "not measured in this run")
+    log(f"dryrun mamba2-130m at phase launch's shape (1 x 1 mesh, 8 x "
+        f"2048, remat full; analytic): {dryrun_terms(rec)}; "
+        f"{time.perf_counter() - t0:.1f} s.  Measured by phase launch: "
+        f"{measured}")
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"dryrun: memory_allocated moved {before} -> "
+          f"{after}")
+    counts = read_counts()
+    log(f"dryrun kernel launches: {json.dumps(counts)} (meta tensors "
+        f"launch none)")
+    check(not any(counts.values()), f"dryrun launched kernels: {counts}")
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "dryrun: a process group was left")
+
+
+EXAMPLE_RUNS = (
+    ("serve_continuous_torch", ["--arch", "llama3-8b", "--requests", "4",
+                                "--max-slots", "2", "--max-len", "64",
+                                "--mean-gap-ms", "1"]),
+    ("quickstart_torch", []),
+    ("coexec_showcase_torch", []),
+)
+
+
+def run_example(name, argv) -> str:
+    """``examples/<name>.py``'s main(argv), freshly loaded: its output."""
+    import contextlib
+    import importlib
+    import io
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    mod = importlib.import_module(f"examples.{name}")
+    mod = importlib.reload(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    return buf.getvalue()
+
+
+def example_lines(out):
+    """(losses, phases, int stats) of a quickstart/coexec output."""
+    import ast
+    losses = [float(m) for m in re.findall(r"loss[= ]\s*(-?[0-9.]+)", out)]
+    phases = re.findall(r"phase=(\S+)", out)
+    line = [ln for ln in out.splitlines() if ln.startswith("stats:")][-1]
+    return losses, phases, ast.literal_eval(line[len("stats:"):].strip())
+
+
+def phase_examples():
+    """The three examples' main() on the card (quickstart and
+    coexec_showcase also on the CPU, to hold the card's lines to)."""
+    import numpy as np
+    zero_counts()
+    for name, argv in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        out = run_example(name, argv)
+        wall = time.perf_counter() - t0
+        log(f"examples {name} (card, {wall:.1f} s): "
+            + " | ".join(out.strip().splitlines()[-3:]))
+        if name.startswith("serve_continuous"):
+            check("retired=4" in out and "phase=co-execution" in out
+                  and "retraces=0" in out, f"examples {name}:\n{out}")
+            continue
+        cpu = run_example(name, argv + ["--device", "cpu"])
+        (lc, pc, sc), (lh, ph, sh) = example_lines(out), example_lines(cpu)
+        n = 8 if name.startswith("coexec") else len(lh)
+        err = float(np.max(np.abs(np.asarray(lc[:n]) - lh[:n])))
+        log(f"examples {name}: losses card vs CPU max abs err {err:.2e} "
+            f"over {n} printed; phases {pc[-1]}; stats equal "
+            f"{sc == sh}: {json.dumps(sc)}")
+        check(len(lc) == len(lh) and all(np.isfinite(lc)) and err <= 1e-3
+              and pc == ph and sc == sh and "co-execution" in pc,
+              f"examples {name}: card\n{out}\nCPU\n{cpu}")
+    counts = read_counts()
+    log(f"examples kernel launches: {json.dumps(counts)} (the scheduler's "
+        f"default pipeline is \"safe\"; the other two hold no rms_norm "
+        f"or attention chain)")
+    check(not any(counts.values()), f"examples launched kernels: {counts}")
 
 
 def main() -> int:
@@ -4682,6 +4831,8 @@ def main() -> int:
             ("persist", phase_persist),
             ("launch", lambda: phase_launch(rows)),
             ("parallel", phase_parallel),
+            ("dryrun", phase_dryrun),
+            ("examples", phase_examples),
         ]
         if args.profile:
             phases += [("profile", lambda: phase_profile(profile_dir)),

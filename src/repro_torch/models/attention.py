@@ -17,6 +17,7 @@ import threading
 import torch
 
 from repro_torch.models.layers import dense, rope
+from repro_torch.parallel.sharding import constrain
 
 NEG_INF = -1e30
 
@@ -167,6 +168,10 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
         k = rope(k, torch.arange(Skv, device=x.device)[None, :]
                  if cache is None else positions, cfg.rope_theta)
 
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+
     new_cache = None
     if cross_states is not None:
         cache = None                    # cross K/V are never cached
@@ -238,5 +243,6 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
                                 window=window, q_block=cfg.q_block,
                                 kv_block=cfg.kv_block)
 
+    out = constrain(out, "batch", None, "heads", None)
     out = dense(out.reshape(B, S, H * D), p["wo"])
     return out, new_cache

@@ -7,6 +7,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import (constrain, gathered, is_dtensor,
+                                           replicated)
+
 
 def rms_norm(x, scale, eps: float = 1e-6):
     dt = x.dtype
@@ -25,6 +28,7 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 
 
 def dense(x, w, b=None):
+    w = gathered(w)
     if x.dtype != w.dtype:              # jnp.einsum's type promotion
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
@@ -56,19 +60,31 @@ def rope(x, positions, theta: float = 500000.0):
 # MLPs
 # --------------------------------------------------------------------------
 
+def _hidden_names(ndim):
+    return ("batch",) + (None,) * (ndim - 2) + ("d_ff",)
+
+
 def mlp_swiglu(p, x):
     """Llama-family gated MLP: down(silu(gate(x)) * up(x))."""
     h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
+    h = constrain(h, *_hidden_names(h.ndim))
     return dense(h, p["w_down"])
 
 
 def embed(table, ids):
+    if is_dtensor(table):
+        # under a mesh: the table read whole, by DTensor's
+        # embedding rule (its rules for the indexing's backward with
+        # sharded ids, and for a vocab-sharded table's masked partial
+        # meeting the gradient's partial sum, fail in the versions at
+        # hand)
+        return F.embedding(ids.long(), replicated(table))
     return table[ids.long()]
 
 
 def unembed(x, table):
     """Logits projection; table [vocab, d] (tied) -> [..., vocab]."""
-    return torch.matmul(x, table.t())
+    return torch.matmul(x, gathered(table).t())
 
 
 # --------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import constrain
 
 
 def init_params(cfg: ModelConfig, generator=None, *, device=None):
@@ -114,7 +115,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, *,
                            cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x[:, -1:])
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(x[:, 0], head), cache
+    return constrain(L.unembed(x[:, 0], head), "batch", "vocab"), cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, *,
@@ -128,7 +129,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
                            cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(x[:, 0], head), cache
+    return constrain(L.unembed(x[:, 0], head), "batch", "vocab"), cache
 
 
 forward = T.forward

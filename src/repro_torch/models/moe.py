@@ -22,6 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense, mlp_swiglu
+from repro_torch.parallel.sharding import (constrain, current_policy,
+                                           is_dtensor)
+from repro_torch.parallel.specs import mesh_view
+from repro_torch.parallel.sharding import gathered as weight
 
 
 def capacity(cfg, T: int) -> int:
@@ -37,6 +41,23 @@ def route(logits, K: int):
     same experts (and so drop the same tokens) as the reference."""
     vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
     return torch.softmax(vals[:, :K], dim=-1), ids[:, :K]
+
+
+def _moe_axes(E: int):
+    """The buffers' logical axes under a mesh (the reference's rule):
+    experts over the expert axes when those divide E, else capacity over
+    its axes."""
+    pol = current_policy()
+    if pol is None or pol.mesh is None:
+        return "expert", None
+    sizes = mesh_view(pol.mesh).shape
+    axes = tuple(a for a in pol.rules.get("expert", ()) if a in sizes)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    if axes and E % size == 0:
+        return "expert", None
+    return None, "capacity"
 
 
 def moe_block(p, x, cfg):
@@ -65,15 +86,24 @@ def moe_block(p, x, cfg):
     # each kept (expert, slot) is written exactly once, so kept rows are
     # exact and need no accumulation (the reference's ``.at[].add`` onto
     # zeros); only row C, the dropped tokens' row, is written more than
-    # once, and it is cut off
+    # once, and it is cut off.  Under a mesh the tokens are a DTensor and
+    # the zeros a plain tensor, which an in-place write cannot mix: there
+    # the write is out of place
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
     buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((flat_ids, slot), xt[tok_idx])
-    buf = buf[:, :C]                                            # [E, C, d]
+    if is_dtensor(xt):
+        buf = buf.index_put((flat_ids, slot), xt[tok_idx])
+    else:
+        buf.index_put_((flat_ids, slot), xt[tok_idx])
+    e_ax, c_ax = _moe_axes(E)
+    buf = constrain(buf[:, :C], e_ax, c_ax, None)               # [E, C, d]
 
     # ---- expert FFNs -------------------------------------------------------
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"])                         # [E, C, d]
+    h = F.silu(torch.bmm(buf, weight(p["w_gate"]))) \
+        * torch.bmm(buf, weight(p["w_up"]))
+    h = constrain(h, e_ax, c_ax, "d_ff")
+    out_buf = constrain(torch.bmm(h, weight(p["w_down"])), e_ax, c_ax,
+                        None)
 
     # ---- combine: gather back and weight ------------------------------------
     gathered = out_buf[flat_ids, torch.clamp_max(slot, C - 1)]  # [T*K, d]

@@ -143,9 +143,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
     """SSD forward (shapes as ``ssd_chunked_plain``).  CUDA tensors launch
     the SSD-scan kernel, through :class:`SSDScan` when autograd records
     (the kernel forward, the plain math's gradients); CPU tensors run the
-    plain chunked math; any other device raises.  ``unroll`` (the
-    reference's dry-run switch) is kept only so that the reference's
-    calls carry over; it has no effect."""
+    plain chunked math, and so do ``meta`` tensors (the dry run's shape
+    propagation: nothing is computed); any other device raises.
+    ``unroll`` (the reference's dry-run switch) is kept only so that the
+    reference's calls carry over; it has no effect."""
     del unroll
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(
@@ -153,17 +154,55 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
             return SSDScan.apply(x, dt, A, Bm, Cm, chunk, return_final)
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                              return_final=return_final)
+    if x.device.type == "meta":
+        return _on_rows(ssd_chunked_plain, x, dt, A, Bm, Cm, chunk,
+                        return_final)
     if x.device.type != "cpu":
         raise NotImplementedError(f"no SSD kernel for {x.device}")
     return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, return_final)
+
+
+def _on_rows(fn, *args):
+    """``fn(*args)`` on each card's batch rows (the SSD math is
+    independent per row): DTensor arguments are laid out batch-sharded,
+    1-d ones (``A``) replicated, ``fn`` runs on the local shards, and its
+    outputs are DTensors of the batch layout.  DTensor's own einsums
+    mis-view some sharded operands.  Without DTensors, ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import as_dtensor, logical
+    ts = [a for a in args if isinstance(a, torch.Tensor)]
+    if not any(isinstance(t, DTensor) for t in ts):
+        return fn(*args)
+    mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
+    pl, local = None, []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            a = logical(as_dtensor(a, mesh), *(
+                [None] if a.ndim == 1 else ["batch"] + [None] * (a.ndim - 1)))
+            if a.ndim > 1 and pl is None:
+                pl = a.placements
+            a = a.to_local()
+        local.append(a)
+    out = fn(*local)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                    for o in outs)
+    return wrapped if isinstance(out, tuple) else wrapped[0]
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm):
     """One-token recurrent update.
 
     state: [B, H, P, N]; x: [B, H, P]; dt: [B, H]; Bm/Cm: [B, N]
-    returns (y [B,H,P], new_state)
+    returns (y [B,H,P], new_state).  ``meta`` tensors (the dry run) run
+    it on each card's rows.
     """
+    if x.device.type == "meta":
+        return _on_rows(_ssd_decode_math, state, x, dt, A, Bm, Cm)
+    return _ssd_decode_math(state, x, dt, A, Bm, Cm)
+
+
+def _ssd_decode_math(state, x, dt, A, Bm, Cm):
     da = torch.exp(dt * A[None, :]).float()                    # [B,H]
     upd = _einsum("bn,bh,bhp->bhpn", Bm, dt, x).float()
     new_state = state.float() * da[:, :, None, None] + upd

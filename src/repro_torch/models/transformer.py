@@ -40,6 +40,7 @@ from repro_torch.models.moe import moe_block
 from repro_torch.models.moe_ep import moe_block_ep
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba2_block
+from repro_torch.parallel.sharding import constrain
 
 ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
 KINDS = ATTN_KINDS + ("ssd", "rglru", "cross", "dec_attn_cross")
@@ -226,6 +227,10 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None
 # ==========================================================================
 
 def _norm(cfg, p, x):
+    # under a mesh the residual stream may be a partial sum (a row-parallel
+    # projection's output): it is reduced here, in the stream's dtype, not
+    # after the norm's f32 upcast at twice the bytes
+    x = constrain(x, "batch", *(None,) * (x.ndim - 1))
     if cfg.norm == "ln":
         return L.layer_norm(x, p["scale"], p["bias"])
     return L.rms_norm(x, p["scale"])
@@ -385,6 +390,7 @@ def _remat(cfg, body, policy=None):
 def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
     per-layer cache outputs are re-stacked along the leading axis."""
+    x = constrain(x, "batch", None, None)
     cache_len = caches["len"] if caches is not None else None
     cache_bt = caches.get("bt") if caches is not None else None
     scanned = (caches["layers"] if caches is not None
@@ -449,4 +455,4 @@ def forward(cfg: ModelConfig, params, tokens, *, cross_states=None,
                      cross_states=cross_states)
     x = _norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(x, head)
+    return constrain(L.unembed(x, head), "batch", None, "vocab")

@@ -7,14 +7,15 @@ the optimizer:
   gradient wire bytes; the residual r = g - decompress(compress(g)) is
   carried to the next step).
 * ``int8``  — block scale quantization (4x reduction); blocks of 256
-  values share one f32 scale.  Ranks' scales differ, so the packs are
-  all-gathered and each rank decompresses and averages them.
+  values share one f32 scale.  The codec and its wire bytes are here, as
+  in the reference; the all-reduce takes "none" and "bf16" only.
 
 ``dp_allreduce(mesh, axis, compression=)`` is the explicit data-parallel
 gradient mean over the process group of one mesh axis, where the
 collective is visible (the reference's shard_map step).  Each rank passes
 its own gradients and residuals (plain tensors) and gets back the mean
-and its new residuals.
+and its new residuals.  Any other compression raises ``ValueError``, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -77,21 +78,7 @@ def _mean_bf16(g, r, group, n):
     return decompress_bf16(c) / n, new_r
 
 
-def _mean_int8(g, r, group, n):
-    import torch.distributed as dist
-    g = g.to(torch.float32) + r
-    q, scale, shape, pad = compress_int8(g)
-    new_r = g - decompress_int8((q, scale, shape, pad))
-    qs = [torch.empty_like(q) for _ in range(n)]
-    ss = [torch.empty_like(scale) for _ in range(n)]
-    dist.all_gather(qs, q, group=group)          # int8 + one f32 / 256
-    dist.all_gather(ss, scale, group=group)
-    total = sum(decompress_int8((qi, si, shape, pad))
-                for qi, si in zip(qs, ss))
-    return total / n, new_r
-
-
-_REDUCE = {"none": _mean_none, "bf16": _mean_bf16, "int8": _mean_int8}
+_REDUCE = {"none": _mean_none, "bf16": _mean_bf16}
 
 
 def compressed_mean(grads, residuals, group, compression: str = "bf16"):

@@ -34,6 +34,7 @@ mesh) :func:`logical` is the identity.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -179,6 +180,45 @@ def logical(x, *names: Optional[str]):
     spec = _fixed_spec(pol, tuple(x.shape), names)
     return as_dtensor(x, pol.mesh).redistribute(
         pol.mesh, placements(pol.mesh, spec))
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (never, and nothing imported, while
+    DTensor's module is not loaded: the one-device paths)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def constrain(x, *names: Optional[str]):
+    """An activation constraint of the model (the reference's ``logical``
+    calls there): ``logical(x, *names)`` for a DTensor under a mesh, else
+    ``x`` as it is (a plain tensor stays plain)."""
+    if current_mesh() is None or not is_dtensor(x):
+        return x
+    return logical(x, *names)
+
+
+def gathered(w):
+    """A parameter as a matmul reads it: under a mesh a DTensor's shards
+    over the FSDP axes (``fsdp_pod``) are all-gathered first, as ZeRO-3
+    (and the reference's partitioner) does; else ``w`` as it is."""
+    from torch.distributed.tensor import Replicate, Shard
+    if current_mesh() is None or not is_dtensor(w):
+        return w
+    fsdp = set(current_policy().rules.get("fsdp_pod", ()))
+    names = w.device_mesh.mesh_dim_names
+    pl = [Replicate() if isinstance(p, Shard) and n in fsdp else p
+          for p, n in zip(w.placements, names)]
+    return w.redistribute(w.device_mesh, pl) if pl != list(w.placements) \
+        else w
+
+
+def replicated(x):
+    """A DTensor redistributed whole onto every rank; else ``x``."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 def param_spec(shape, logical_axes, pol: ShardingPolicy) -> P:

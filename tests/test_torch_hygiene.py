@@ -145,6 +145,38 @@ def test_parallel_and_launch_modules_are_scanned_and_import_no_jax():
                              r"\bfrom repro\.|\bimport repro\b", src), path
 
 
+def test_analytic_tools_and_examples_are_scanned_and_import_no_jax():
+    """The dry run, roofline, report and hillclimb modules and the last
+    three examples are among the scanned files, and none of them names
+    JAX, ml_dtypes or the reference."""
+    files = _port_files()
+    want = [os.path.join(PORT, "launch", n) for n in (
+        "roofline.py", "dryrun.py", "report.py", "hillclimb.py")]
+    want += [os.path.join(ROOT, "examples", n + "_torch.py") for n in (
+        "quickstart", "coexec_showcase", "serve_continuous")]
+    for path in want:
+        assert path in files, path
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"\bimport jax|\bfrom jax\b|\bml_dtypes\b|"
+                             r"\bfrom repro\.|\bimport repro\b", src), path
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart_torch", []), ("coexec_showcase_torch", []),
+    ("serve_continuous_torch", ["--requests", "2", "--max-slots", "2",
+                                "--max-len", "48", "--mean-gap-ms", "1"])])
+def test_examples_raise_without_cuda_unless_cpu_is_asked(name, argv, no_cuda,
+                                                         monkeypatch, capsys):
+    import importlib
+    monkeypatch.syspath_prepend(ROOT)
+    mod = importlib.reload(importlib.import_module(f"examples.{name}"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    mod.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out
+
+
 def test_launcher_raises_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path,
                                                           capsys):
     from repro_torch.launch import train as launch
@@ -270,8 +302,9 @@ def test_kernel_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     vl = torch.ones(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         kops.paged_attention(q, kv, kv, bt, vl)
-    # the SSD scan and the model function that reaches it: a meta tensor
-    # raises, and the plain versions never run for it
+    # the SSD scan: a meta tensor makes the kernel wrapper raise and its
+    # plain version never runs; the model function that reaches it runs
+    # the chunked math on meta tensors (the dry run's shape propagation)
     from repro_torch.models import ssm
     ssd_mod = sys.modules["repro_torch.kernels.ssd_scan"]
     x = torch.zeros(1, 8, 2, 16, device="meta")
@@ -280,12 +313,13 @@ def test_kernel_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     bc = torch.zeros(1, 8, 16, device="meta")
     ran = []
     monkeypatch.setattr(ssd_mod, "ref_ssd", lambda *a, **k: ran.append(1))
-    monkeypatch.setattr(ssm, "ssd_chunked_plain",
-                        lambda *a, **k: ran.append(1))
     with pytest.raises(NotImplementedError):
         kops.ssd_scan(x, dt, a, bc, bc, return_final=True)
-    with pytest.raises(NotImplementedError):
-        ssm.ssd_chunked(x, dt, a, bc, bc, 4, return_final=True)
+    y, state = ssm.ssd_chunked(x, dt, a, bc, bc, 4, return_final=True)
+    assert (y.device.type, tuple(y.shape), y.dtype) == (
+        "meta", (1, 8, 2, 16), torch.float32)
+    assert (state.device.type, tuple(state.shape), state.dtype) == (
+        "meta", (1, 2, 16, 16), torch.float32)
     assert not ran
 
 
