@@ -209,19 +209,22 @@ Phases, in order; any failure exits non-zero and prints no result:
               child resumes at step 20 ("auto-resumed from step 20") and
               takes 10 more.  The loss must fall; each step's forward
               launches the SSD-scan kernel once a layer and its remat
-              recompute once more (launches == 48 x steps, counters
-              zeroed just before, read just after, in the child); the
-              median step time (each step waited for) and the peak
-              memory.  Then ``SSDScan`` at that shape against all-plain
-              autograd (f32 and bf16: the forward within SSD_TOL, the
-              gradients within 1e-3) and its kernel row
+              recompute once more (launches == 48 x steps) and its
+              backward the gradient kernel once a layer (ssd_scan_bwd
+              launches == 24 x steps; counters zeroed just before, read
+              just after, in the child); the median step time (each step
+              waited for) and the peak memory.  Then ``SSDScan`` at that
+              shape against all-plain autograd (f32 and bf16: the forward
+              within SSD_TOL, the gradients within f32 1e-4 and bf16
+              5e-2 of the largest value) and its kernel row
               ``ssd_scan[mamba2 training 8x2048]`` (time a call by CUDA
               events, bound, plain time, the first child's launches).  Then 2 layers in
               float32 (TF32 off), the launcher in this process: steps
               21-30 of a resumed run equal an unbroken 30-step run's
               within 1e-3 (2 x 2048 tokens), and 8 steps on the card
-              (kernel forward) equal 8 on the CPU (plain) within
-              PARITY_RTOL (1 x 512), both from one step-0 checkpoint.
+              (kernel forward and backward) equal 8 on the CPU (plain)
+              within PARITY_RTOL (1 x 512), both from one step-0
+              checkpoint.
 17. parallel — the parallel layer on a one-process NCCL group:
               ``dp_allreduce`` bf16 on CUDA tensors (mean + residual
               gives the gradient back) and deepseek-moe-16b at
@@ -230,9 +233,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``moe_block`` path.
 18. dryrun  — ``repro_torch.launch.dryrun.run_cell`` (no card: ``meta``
               tensors over a fake 256-rank group) for llama3-8b x
-              decode_32k and mamba2-130m x train_4k on the production
-              mesh: status ``ok`` and ``torch.cuda.memory_allocated()``
-              unmoved; the analytic roofline terms logged.  Then the dry
+              decode_32k, mamba2-130m x train_4k and mamba2-130m x
+              decode_32k on the production mesh: status ``ok`` and
+              ``torch.cuda.memory_allocated()`` unmoved; the analytic roofline terms logged.  Then the dry
               run at phase launch's own shape (mamba2-130m, 1 x 1 mesh,
               8 x 2048, remat full): its compute and memory terms and
               peak bytes beside the launch phase's measured median step
@@ -258,7 +261,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               decode (device time by class: matrix products, the paged
               kernels, the rest; busy share); five steps of the mamba2
               launcher's trainer (8 x 2048 tokens, device time by class
-              a step: products, the SSD kernels, elementwise).
+              a step: products, the SSD kernels and among them the
+              backward's own, elementwise).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -897,7 +901,8 @@ def launch_counters():
     return {"paged_attention": kops.paged_attention,
             "rmsnorm": kops.rmsnorm,
             "flash_attention": kops.flash_attention,
-            "ssd_scan": kops.ssd_scan}
+            "ssd_scan": kops.ssd_scan,
+            "ssd_scan_bwd": kops.ssd_scan_bwd}
 
 
 def zero_counts():
@@ -1751,21 +1756,27 @@ def ssd_inputs(B, S, H, P, N, dtype, seed, dt_dtype, strided):
     return x, dt, A, Bm, Cm
 
 
+def ssd_pairs(S):
+    """The causal (i >= j) token pairs of the kernels' chunks over S
+    tokens: the intra-chunk products' work, a ragged last chunk counted
+    at its own length."""
+    Q = sys.modules["repro_torch.kernels.ssd_scan"].CHUNK
+    r = S % Q
+    return S // Q * Q * (Q + 1) // 2 + r * (r + 1) // 2
+
+
 def ssd_bound_ms(x, dt, Bm, final):
     """Each input read once, y (and the final state) written once; the
-    work at the reference's chunk Q (256, halved until it divides S), at
-    the peak of x's type: per token, C·Bᵀ (Q·N, shared by the heads, as
-    B and C are) and per head M·(dt·x) (Q·P), C·hᵀ and the state update
-    (P·N each), two operations per multiply-add."""
+    work over the causal pairs of the kernels' chunks (ssd_pairs), at
+    the peak of x's type: per pair C·Bᵀ (N, shared by the heads, as B
+    and C are) and per head M·(dt·x) (P), per token and head C·hᵀ and the
+    state update (P·N each), two operations per multiply-add."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     el, del_ = x.element_size(), dt.element_size()
     nbytes = (2 * B * S * H * P * el + 2 * B * S * N * el + B * S * H * del_
               + H * 4 + (B * H * P * N * 4 if final else 0))
-    Q = min(MAMBA_CHUNK, S)
-    while S % Q:
-        Q //= 2
-    ops = 2 * B * S * (Q * N + H * (Q * P + 2 * P * N))
+    ops = 2 * B * (ssd_pairs(S) * (N + H * P) + S * H * 2 * P * N)
     dtn = str(x.dtype).replace("torch.", "")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtn]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
@@ -1879,6 +1890,169 @@ def ssd_kernel_row():
         del ins
     release()
     return row
+
+
+# of the largest value: against all-plain autograd, and against
+# ref_ssd_bwd (the same passes in f32: only the kernel's tf32 operands and
+# bf16 outputs differ, 4.8e-3 at most on the card)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_BWD_REF_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2}
+SSD_BWD_NAME = "ssd_scan_bwd[mamba2 training 8x2048]"
+# (label, B, S, dh_final): the serving prefill (with the final state's
+# cotangent), the launcher's training shape and a ragged length
+SSD_BWD_PATH = (("prefill", 1, 1024, True), ("training", 8, 2048, False),
+                ("training+dh", 8, 2048, True), ("ragged", 2, 1000, True))
+
+
+def ssd_bwd_bound_ms(x, dt, Bm, final):
+    """x, dt, B, C and dy read once (and dh_final), their gradients and dA
+    written once; the gradient's work over the causal pairs of the
+    kernels' chunks (ssd_pairs), at the peak of x's type: per pair C·Bᵀ
+    (N, shared by the heads) and per head dy·uᵀ and Mᵀ·dy (P each) and
+    the intra-chunk dB and dC (N each), per token and head five [P, N]
+    products (the chunk state recomputed, its gradient g, D·B, dyᵀ·h and
+    uᵀ·D), two operations per multiply-add."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    el, del_ = x.element_size(), dt.element_size()
+    nbytes = (3 * B * S * H * P * el + 4 * B * S * N * el + 2 * B * S * H
+              * del_ + 2 * H * 4 + (B * H * P * N * 4 if final else 0))
+    ops = 2 * B * (ssd_pairs(S) * (N + H * (2 * P + 2 * N))
+                   + S * H * 5 * P * N)
+    dtn = str(x.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtn]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def plain_ssd_grads(args, dy, dh, chunk):
+    """All-plain autograd of ssd_chunked_plain for the cotangents dy (and
+    dh): the path SSDScan's backward took before its kernel."""
+    import torch
+    from repro_torch.models.ssm import ssd_chunked_plain
+    ps = [a.detach().requires_grad_(True) for a in args]
+    out = ssd_chunked_plain(*ps, chunk, return_final=dh is not None)
+    outs, gs = ((out,), (dy,)) if dh is None else (out, (dy, dh))
+    return torch.autograd.grad(outs, ps, gs)
+
+
+def grad_errs(got, want):
+    """Max abs error and max error relative to the largest value, per
+    gradient (dx, ddt, dA, dB, dC)."""
+    out = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        out.append((err, err / max(w.float().abs().max().item(), 1e-30)))
+    return out
+
+
+def ssd_bwd_kernel_row():
+    """ssd_scan_bwd (the SSD scan's gradient) against ref.ref_ssd_bwd (its
+    own decomposition in plain torch) over SSD_SWEEP (each case with
+    dh_final in one dtype and without in the other) and SSD_BWD_PATH (the
+    serving prefill, the launcher's training shape [8, 2048] with the
+    model's strided conv-slice inputs, a ragged length), and at
+    SSD_BWD_PATH also against all-plain autograd of ssd_chunked_plain, f32
+    and bf16: every gradient within SSD_BWD_REF_TOL (SSD_BWD_TOL against
+    plain autograd) of its largest value, no NaN, and a second call equal
+    to the bit.  Then timed at the training shape in bf16 over rotating
+    inputs (together > the L2): CUDA events a call in three turns (the
+    median) and the profiler's device time split per kernel, beside the
+    plain backward (autograd of ssd_chunked_plain with its forward
+    recompute, the path the kernel replaces) and the bound; the kernels'
+    registers and spills from the build log.  No PyTorch call computes
+    the SSD scan's gradient.  The row's launches come from phase
+    launch."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import SSD_SWEEP, ref_ssd_bwd
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
+
+    def compare(label, args, dy, dh, chunk=None):
+        got = kops.ssd_scan_bwd(*args, dy, dh)
+        again = kops.ssd_scan_bwd(*args, dy, dh)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+        name = str(args[0].dtype).replace("torch.", "")
+        tols = {"ref_ssd_bwd": SSD_BWD_REF_TOL[name]}
+        errs = {"ref_ssd_bwd": grad_errs(got, ref_ssd_bwd(*args, dy, dh))}
+        if chunk is not None:
+            tols["plain autograd"] = SSD_BWD_TOL[name]
+            errs["plain autograd"] = grad_errs(got, plain_ssd_grads(
+                args, dy, dh, chunk))
+        nan = any(bool(torch.isnan(g.float()).any()) for g in got)
+        log(f"ssd_scan_bwd {label} {name} dh_final={dh is not None}: "
+            f"bitwise repeat {bitwise}; max rel err (dx, ddt, dA, dB, dC) "
+            + "; ".join(f"vs {k} " + " ".join(f"{r:.2e}" for _, r in v)
+                        + f" (tol {tols[k]})" for k, v in errs.items()))
+        for k, v in errs.items():
+            check(all(r <= tols[k] for _, r in v) and not nan,
+                  f"ssd_scan_bwd disagrees with {k} at {label} {name}: {v}")
+        check(bitwise, f"ssd_scan_bwd is not bitwise repeatable at {label}")
+        return max(e for v in errs.values() for e, _ in v)
+
+    for i, case in enumerate(SSD_SWEEP):
+        B, S, H, P, N, _ = case
+        for k, dtype in enumerate((torch.float32, torch.bfloat16)):
+            final = (i + k) % 2 == 1        # each case both ways, by dtype
+            args = ssd_inputs(B, S, H, P, N, dtype, 300 + i, torch.float32,
+                              strided=final)
+            dy = seeded((B, S, H, P), dtype, 400 + i)
+            dh = seeded((B, H, P, N), torch.float32, 500 + i) \
+                if final else None
+            compare(str(case), args, dy, dh)
+    err = None
+    for j, (label, B, S, final) in enumerate(SSD_BWD_PATH):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, dtype, 600 + j,
+                              dtype, strided=True)
+            dy = seeded((B, S, MAMBA_H, MAMBA_P), dtype, 610 + j)
+            dh = seeded((B, MAMBA_H, MAMBA_P, MAMBA_N), torch.float32,
+                        620 + j) if final else None
+            e = compare(f"{label} [{B},{S},{MAMBA_H},{MAMBA_P}] "
+                        f"N={MAMBA_N}", args, dy, dh, MAMBA_CHUNK)
+            if label == "training" and dtype == torch.bfloat16:
+                err = e
+            del args, dy, dh
+            release()
+
+    B, S = SSD_TRAIN
+    ins = [ssd_inputs(B, S, MAMBA_H, MAMBA_P, MAMBA_N, torch.bfloat16,
+                      700 + i, torch.bfloat16, strided=True)
+           + (seeded((B, S, MAMBA_H, MAMBA_P), torch.bfloat16, 710 + i),)
+           for i in range(2)]
+    call = rotating([lambda t=t: kops.ssd_scan_bwd(*t) for t in ins])
+    runs = [time_ms(call, 10) for _ in range(3)]
+    ms = sorted(runs)[1]
+    dev, split = device_split(call, 10)
+    plain_ms = time_ms(rotating([
+        lambda t=t: plain_ssd_grads(t[:5], t[5], None, MAMBA_CHUNK)
+        for t in ins]), 4)
+    bound, by = ssd_bwd_bound_ms(ins[0][0], ins[0][1], ins[0][3], False)
+    scratch = SS.bwd_scratch_bytes(B, S, MAMBA_H, MAMBA_P, MAMBA_N)
+    regs = [f"{k} {r} registers, {sp} bytes spill stores"
+            for k, r, sp in ptxas_entries(build.LOGS.get("ssd_scan", ""))
+            if k.startswith(("ssd_grad", "ssd_rpass", "ssd_bwd"))
+            or k.endswith(",true>")]
+    log(f"ssd_scan_bwd bf16 training [{B},{S},{MAMBA_H},{MAMBA_P}] "
+        f"N={MAMBA_N} (chunks, heads a CTA {SS.plan(B, S, MAMBA_H)}, "
+        f"scratch {scratch / 1e6:.1f} MB): {ms:.4f} ms a call by CUDA "
+        f"events (turns " + ", ".join(f"{d:.4f}" for d in runs)
+        + f"); profiler device time {dev:.4f} ms, per kernel "
+        + "; ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; {ms / bound:.1f}x the bound {bound:.5f} ms ({by}); plain "
+        f"(autograd of ssd_chunked_plain with its recompute) {plain_ms:.3f}"
+        f" ms; no PyTorch library call computes the SSD scan's gradient; "
+        + ("; ".join(regs) or "registers not in the build log"))
+    del ins, call
+    release()
+    return {"name": SSD_BWD_NAME, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/models/ssm.py:34",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
 
 
 MAMBA_SERVE_KW = dict(max_slots=16, max_len=2048)
@@ -2367,6 +2541,9 @@ def phase_launch_profile(out_dir):
                    per=[("GEMMs", ("gemm", "nvjet", "cutlass", "xmma"), 5,
                          "step"),
                         ("SSD kernels", ("ssd_",), 5, "step"),
+                        ("SSD backward's own kernels (a', b', c', sums)",
+                         ("ssd_grad", "ssd_rpass", "ssd_bwd",
+                          ", true>"), 5, "step"),
                         ("elementwise", ("elementwise", "vectorized"), 5,
                          "step"),
                         ("reductions", ("reduce",), 5, "step"),
@@ -4258,7 +4435,8 @@ SSD_TRAIN = (8, 2048)       # the launcher's batch x tokens
 
 def run_launcher(argv):
     """``repro_torch.launch.train.main(argv)`` in this process, its printed
-    lines kept, the SSD-scan launches counted from 0 over the run, and on
+    lines kept, the SSD-scan forward and backward launches counted from 0
+    over the run, and on
     the card each step waited for (``_SyncedSteps``): the step times, the
     engine counters and the peak memory.  Returns a dict."""
     import contextlib
@@ -4296,9 +4474,10 @@ def run_launcher(argv):
     finally:
         LT.Trainer = base
     wall = time.perf_counter() - t0
-    launches = read_counts()["ssd_scan"]
+    counts = read_counts()
     tr = made[0]
-    out = {"stdout": buf.getvalue(), "launches": launches, "wall_s": wall,
+    out = {"stdout": buf.getvalue(), "launches": counts["ssd_scan"],
+           "bwd_launches": counts["ssd_scan_bwd"], "wall_s": wall,
            "history": tr.history, "start_step": tr.start_step,
            "stats": {k: v for k, v in getattr(tr, "stats", {}).items()
                      if isinstance(v, int)}}
@@ -4341,13 +4520,13 @@ def _launch_losses(res):
 
 def ssd_training_row(launches):
     """The SSD scan at the launcher's shape (x [8, 2048, 24, 64], N 128):
-    ``SSDScan`` (the kernel forward, the plain math's backward) against
-    all-plain autograd of ``ssd_chunked_plain`` on the card, f32 and bf16
-    — forward within SSD_TOL, every gradient within 1e-3 of its largest
-    (both backwards run the plain math on the same inputs) — then the
-    kernel's time a call (CUDA events, three turns, the median) beside
-    the plain forward's, and the bound.  No single PyTorch call computes
-    the SSD scan."""
+    ``SSDScan`` (the kernel forward, the gradient kernel's backward: one
+    launch each) against all-plain autograd of ``ssd_chunked_plain`` on
+    the card, f32 and bf16 — forward within SSD_TOL, every gradient within
+    SSD_BWD_TOL of its largest value — then the forward kernel's time a
+    call (CUDA events, three turns, the median) beside the plain
+    forward's, and the bound.  No single PyTorch call computes the SSD
+    scan."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import SSD_TOL
@@ -4360,11 +4539,12 @@ def ssd_training_row(launches):
                           dtype, strided=False)
         w = seeded((B, S, MAMBA_H, MAMBA_P), torch.float32, 201)
         xs = [a.clone().requires_grad_(True) for a in args]
-        n0 = kops.ssd_scan.launches
+        n0, b0 = kops.ssd_scan.launches, kops.ssd_scan_bwd.launches
         y = SSDScan.apply(*xs, MAMBA_CHUNK, False)
         got = torch.autograd.grad((y.float() * w).sum(), xs)
-        check(kops.ssd_scan.launches == n0 + 1,
-              "SSDScan did not launch the kernel once")
+        check(kops.ssd_scan.launches == n0 + 1
+              and kops.ssd_scan_bwd.launches == b0 + 1,
+              "SSDScan did not launch each kernel once")
         ps = [a.clone().requires_grad_(True) for a in args]
         yp = ssd_chunked_plain(*ps, MAMBA_CHUNK)
         want = torch.autograd.grad((yp.float() * w).sum(), ps)
@@ -4375,9 +4555,11 @@ def ssd_training_row(launches):
                         / h.float().abs().max()) for g, h in zip(got, want))
         log(f"ssd_scan training [{B},{S},{MAMBA_H},{MAMBA_P}] N={MAMBA_N} "
             f"{name}: forward max_abs_err vs plain {e:.3e} (tol "
-            f"{SSD_TOL[name]}); gradients (x, dt, A, B, C) vs all-plain "
-            f"autograd: max rel err {rel:.3e}")
-        check(rel <= 1e-3, f"SSDScan gradients vs plain {name}: {rel}")
+            f"{SSD_TOL[name]}); gradients (x, dt, A, B, C) of the kernel vs "
+            f"all-plain autograd: max rel err {rel:.3e} (tol "
+            f"{SSD_BWD_TOL[name]})")
+        check(rel <= SSD_BWD_TOL[name],
+              f"SSDScan gradients vs plain {name}: {rel}")
         if dtype == torch.bfloat16:
             err = e
         del args, xs, ps, y, yp, got, want
@@ -4453,8 +4635,9 @@ def phase_launch(rows):
             f"{8 * 2048 / med * 1e3:.0f} tokens/s at the median, "
             f"max_memory_allocated {res['peak_gib']:.3f} GiB, ssd_scan "
             f"launches {res['launches']} ({res['launches'] / steps:.1f} a "
-            f"step), process {res['proc_s']:.1f} s, launcher "
-            f"{res['wall_s']:.1f} s")
+            f"step), ssd_scan_bwd launches {res['bwd_launches']} "
+            f"({res['bwd_launches'] / steps:.1f} a step), process "
+            f"{res['proc_s']:.1f} s, launcher {res['wall_s']:.1f} s")
         log(f"launch {label} losses: "
             + json.dumps([round(l, 5) for l in losses]))
         log(f"launch {label} counters: " + json.dumps(res["stats"]))
@@ -4466,6 +4649,9 @@ def phase_launch(rows):
         check(res["launches"] == per_step * steps,
               f"launch {label}: {res['launches']} ssd_scan launches, not "
               f"{per_step} x {steps}")
+        check(res["bwd_launches"] == cfg.n_layers * steps,
+              f"launch {label}: {res['bwd_launches']} ssd_scan_bwd "
+              f"launches, not {cfg.n_layers} x {steps}")
     check(_launch_losses(a)[-1] < _launch_losses(a)[0],
           "launch: the loss did not fall")
     check(f"auto-resumed from step {LAUNCH_STEPS}" in b["stdout"]
@@ -4473,6 +4659,9 @@ def phase_launch(rows):
           and b["history"][0][0] == LAUNCH_STEPS + 1,
           "launch: the second process did not resume")
     rows.append(ssd_training_row(a["launches"]))
+    for row in rows:
+        if row["name"] == SSD_BWD_NAME:
+            row["launches"] = a["bwd_launches"]
 
     # 2 layers in f32 (TF32 off): steps 21-30 of a resumed run against an
     # unbroken one, then card against CPU
@@ -4515,14 +4704,18 @@ def phase_launch(rows):
             arms[name] = _launch_losses(res)
             if name == "card":
                 check(res["launches"] == per_step // cfg.n_layers
-                      * 2 * LAUNCH_CPU_STEPS, f"launch card arm: "
-                      f"{res['launches']} ssd_scan launches (2 layers)")
+                      * 2 * LAUNCH_CPU_STEPS
+                      and res["bwd_launches"] == 2 * LAUNCH_CPU_STEPS,
+                      f"launch card arm: {res['launches']} ssd_scan and "
+                      f"{res['bwd_launches']} ssd_scan_bwd launches (2 "
+                      f"layers)")
             log(f"launch parity arm {name} (2 layers, f32, 1 x 512): "
                 f"losses {json.dumps([round(l, 6) for l in arms[name]])} "
                 f"({res['wall_s']:.1f} s)")
         rel = float(np.max(np.abs(np.asarray(arms["card"]) - arms["cpu"])
                            / np.abs(arms["cpu"])))
-        log(f"launch parity card (kernel forward) vs cpu (plain): max rel "
+        log(f"launch parity card (kernel forward and backward) vs cpu "
+            f"(plain): max rel "
             f"err {rel:.3e} (rtol {PARITY_RTOL})")
         check(rel <= PARITY_RTOL, f"launch parity card vs cpu: {rel}")
     finally:
@@ -4611,7 +4804,8 @@ def phase_parallel():
 
 # phase launch's measured median step (ms) and peak (GiB), for phase dryrun
 LAUNCH_MEASURED = {}
-DRYRUN_CELLS = (("llama3-8b", "decode_32k"), ("mamba2-130m", "train_4k"))
+DRYRUN_CELLS = (("llama3-8b", "decode_32k"), ("mamba2-130m", "train_4k"),
+                ("mamba2-130m", "decode_32k"))
 
 
 def dryrun_terms(rec) -> str:
@@ -4807,7 +5001,7 @@ def main() -> int:
             rows.extend([phase_kernels(),
                          rmsnorm_kernel_row((SCORE_BATCH, SCORE_SEQ, 4096)),
                          flash_kernel_row(SCORE_BATCH * 32, SCORE_SEQ),
-                         ssd_kernel_row()])
+                         ssd_kernel_row(), ssd_bwd_kernel_row()])
             rows.extend(family_paged_rows() + [flash_d256_row()]
                         + flash_whisper_rows())
 

@@ -6,7 +6,8 @@
     flash_attention — causal/SWA/GQA online-softmax attention
                       (csrc/flash_attention.cu)
     ssd_scan        — Mamba-2 SSD chunked scan with an optional final
-                      state (csrc/ssd_scan.cu)
+                      state, and its gradient ``ops.ssd_scan_bwd``
+                      (csrc/ssd_scan.cu)
     build.py        — nvcc build (sm_90a) at first use into kernels/_build/,
                       bound by ctypes
     ref.py          — plain versions: the CPU path and the ground truth

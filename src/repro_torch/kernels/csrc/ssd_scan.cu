@@ -77,11 +77,54 @@
 // float32 (ssd_state_f32 / ssd_out_f32, 128 threads each): the same
 // chunk-parallel structure with exact f32 FMAs on the CUDA cores and no
 // TF32, as the f32 equality gates (logits card vs CPU within 1e-4) need.
+//
+// The backward (repro_ssd_scan_bwd) replaces no TPU kernel: the reference
+// has none, and XLA differentiates its chunked math
+// (src/repro/models/ssm.py:34).  It was added because, on the card, the
+// training path differentiated the kernel's plain version instead, which
+// took most of a mamba2 training step.  With dy the cotangent of y and
+// D_c that of the state leaving chunk c (D_last = dh_final or 0), per
+// (b, h) it runs the forward's passes (a) and (b) again for the states
+// h_c entering each chunk (f32 over the chunk states; the forward saves
+// only its inputs), then
+//  (a') the chunk pass on dy and C (ssd_state_*<TD, true>): g_c = sum_i
+//       exp(cs_i) dy_i C_i^T, the gradient reaching h_c from y;
+//  (b') the reverse state pass, ssd_rpass_kernel: D_(c-1) = exp(cs_last,c)
+//       D_c + g_c over the chunks from the last, in f32;
+//  (c') the gradient pass, ssd_grad_kernel: one CTA of 256 threads per
+//       (b, chunk, group of heads) stages C_c, B_c and C.B^T once; per
+//       head du = (C.B^T o L)^T dy + exp(cs_last - cs_j) D_c B_j (dx = dt
+//       du), T = L o (dy u^T), dC = T B + exp(cs_i) dy^T h_c, dB = T^T C +
+//       exp(cs_last - cs_j) u^T D_c, and the decay's gradient dcs (row
+//       sums of C.B^T o T minus its column sums, and the state terms)
+//       reverse-summed into da: ddt = x . du + A da, dA's partial;
+//  and ssd_bwd_finish sums the per-CTA partials of dB and dC (over head
+//  groups) and of dA (over b and chunks) in a fixed order: no atomics,
+//  so two calls give equal bits.  The products of (c') run as tf32
+//  mma.sync m16n8k8 on the tensor cores for bf16 inputs when N and P are
+//  multiples of 32 (operands that are not bf16 already lose ~2^-11 in
+//  tf32; with the bf16 outputs' rounding, within 1.5e-2 of the largest
+//  value of kernels/ref.ref_ssd_bwd, which computes the same passes in
+//  plain torch) and as exact f32 FMAs otherwise (f32 inputs: 1e-4).
+// Bound at the training shape (x [8, 2048, 24, 64] bf16, N = 128): x, dt,
+// B, C and dy read once and their gradients written once are 169.4 MB
+// (0.0506 ms at 3.35 TB/s); the products over the causal token pairs of
+// the 64-token chunks are ~42 GFLOP (0.043 ms at the bf16 tensor-core
+// peak): bytes bound it.  The first form (every product an f32 FMA) read
+// 4.22 ms a call; the tf32 form 2.77, ~55x the bound, 2.21 of it the
+// gradient pass (NVIDIA H100 80GB HBM3, 700.00 W).  What holds (c')
+// there: one 227 KB CTA of 8 warps a SM, its fragments loaded element by
+// element from f32 shared memory, and dB and dC accumulated in global
+// (L2) partials by read-modify-write; and the scratch: the recomputed
+// states and g/D [B, nc, H, P, N] f32 are each written and read (0.4 GB
+// at the training shape).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 
 namespace {
@@ -235,8 +278,11 @@ __device__ __forceinline__ float chunk_cumsum(const Args& a, int b, int c0,
 
 __host__ __device__ constexpr int kpad(int N) { return (N + 15) / 16 * 16; }
 
-// (a) chunk pass: one CTA of kQ/16 warps per (chunk, head group, b)
-template <typename TD>
+// (a) chunk pass: one CTA of kQ/16 warps per (chunk, head group, b).
+// kGrad: the backward's chunk pass (a') instead, on x = dy and B = C with
+// weights exp(cs_j), for chunks 1.. (chunk c = blockIdx.x + 1 writes slot
+// blockIdx.x of states and decay)
+template <typename TD, bool kGrad>
 __global__ void __launch_bounds__(kT) ssd_state_bf16(Args a) {
   constexpr int Q = kQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -249,7 +295,7 @@ __global__ void __launch_bounds__(kT) ssd_state_bf16(Args a) {
   constexpr int W = Q / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int c = blockIdx.x, b = blockIdx.z, c0 = c * Q;
+  const int slot = blockIdx.x, c = slot + kGrad, b = blockIdx.z, c0 = c * Q;
   const int q = min(Q, a.S - c0);
   const int h0 = blockIdx.y * a.hg, h1 = min(h0 + a.hg, a.H);
 
@@ -258,7 +304,8 @@ __global__ void __launch_bounds__(kT) ssd_state_bf16(Args a) {
              a.sbs, q, Q, a.N, NK, a.vec);
 
   for (int h = h0; h < h1; ++h) {
-    float* st = a.states + (((long long)b * a.nc + c) * a.H + h) * a.P * a.N;
+    float* st =
+        a.states + (((long long)b * a.nc + slot) * a.H + h) * a.P * a.N;
     for (int p0 = 0; p0 < a.P; p0 += kPB) {
       const int pw = min(kPB, a.P - p0);
       __syncthreads();                // the last readers of Xs / wts are done
@@ -269,8 +316,10 @@ __global__ void __launch_bounds__(kT) ssd_state_bf16(Args a) {
       if (p0 == 0 && warp == 0) {     // overlaps the copies in flight
         const float cl = chunk_cumsum<TD>(a, b, c0, q, h, dts, cs);
         __syncwarp();
-        for (int j = lane; j < Q; j += 32) wts[j] = expf(cl - cs[j]) * dts[j];
-        if (lane == 0) a.decay[((long long)b * a.nc + c) * a.H + h] = expf(cl);
+        for (int j = lane; j < Q; j += 32)
+          wts[j] = kGrad ? expf(cs[j]) : expf(cl - cs[j]) * dts[j];
+        if (lane == 0)
+          a.decay[((long long)b * a.nc + slot) * a.H + h] = expf(cl);
       }
       cp_async_wait_all();
       __syncthreads();
@@ -507,8 +556,8 @@ size_t smem_out_bf16(int N) {
 // ============================ float32 ======================================
 
 // (a) chunk pass, exact f32: one CTA of kT threads per (chunk, head
-// group, b), P in steps of 16 rows
-template <typename TD>
+// group, b), P in steps of 16 rows; kGrad as ssd_state_bf16
+template <typename TD, bool kGrad>
 __global__ void __launch_bounds__(kT) ssd_state_f32(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int Q = kQ;
@@ -519,7 +568,7 @@ __global__ void __launch_bounds__(kT) ssd_state_f32(Args a) {
   float* cs = dts + Q;
   float* wts = cs + Q;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x, b = blockIdx.z, c0 = c * Q;
+  const int slot = blockIdx.x, c = slot + kGrad, b = blockIdx.z, c0 = c * Q;
   const int q = min(Q, a.S - c0);
   const int h0 = blockIdx.y * a.hg, h1 = min(h0 + a.hg, a.H);
   stage_rows(Bs, NS, (const float*)a.Bm + b * a.sbb + (long long)c0 * a.sbs,
@@ -530,11 +579,12 @@ __global__ void __launch_bounds__(kT) ssd_state_f32(Args a) {
     if (warp == 0) {
       const float cl = chunk_cumsum<TD>(a, b, c0, q, h, dts, cs);
       __syncwarp();
-      for (int j = lane; j < Q; j += 32) wts[j] = expf(cl - cs[j]) * dts[j];
-      if (lane == 0) a.decay[((long long)b * a.nc + c) * a.H + h] = expf(cl);
+      for (int j = lane; j < Q; j += 32)
+        wts[j] = kGrad ? expf(cs[j]) : expf(cl - cs[j]) * dts[j];
+      if (lane == 0) a.decay[((long long)b * a.nc + slot) * a.H + h] = expf(cl);
     }
     __syncthreads();
-    float* st = a.states + (((long long)b * a.nc + c) * a.H + h) * a.P * N;
+    float* st = a.states + (((long long)b * a.nc + slot) * a.H + h) * a.P * N;
     for (int p0 = 0; p0 < a.P; p0 += kPT32) {
       if (p0) __syncthreads();
       for (int i = threadIdx.x; i < Q * kPT32; i += kT) {
@@ -683,11 +733,550 @@ __global__ void __launch_bounds__(128) ssd_pass_kernel(Args a, int steps) {
   }
 }
 
+// ============================ backward =====================================
+
+constexpr int kTB = 256;            // threads of the gradient pass
+constexpr int kMaxNB = 128;         // largest N the gradient pass takes
+static_assert(kQ * kQ / 16 == kTB, "one 4 x 4 tile of dy.x^T a thread");
+
+struct Grad {
+  const void* dy;                   // [B, S, H, P] through sdyb/sdys/sdyh
+  const float* dh;                  // dh_final [B, H, P, N] contiguous, or null
+  void* dx;                         // [B, S, H, P] contiguous, x's dtype
+  void* ddt;                        // [B, S, H] contiguous, dt's dtype
+  float* dA;                        // [H]
+  void* dB;                         // [B, S, N] contiguous, x's dtype
+  void* dC;
+  float* gs;                        // [B, nc, H, P, N]: g_(c+1), then D_c
+  float* gdecay;                    // [B, nc, H]: exp(cs_last) of chunk c + 1
+  float* dBp;                       // [B, nc, groups, Q, N] per-CTA partials
+  float* dCp;
+  float* dAp;                       // [B, nc, H]
+  long long sdyb, sdys, sdyh;
+  int pt;                           // rows of P a tile of the gradient pass
+};
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// A matrix in shared memory: element (r, k) at p[r * rs + k * cs].
+struct Op {
+  const float* p;
+  int rs, cs;
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// d += a . b: m16n8k8, a row-major [16 x 8], b column-major [8 x 8], tf32
+// in, f32 accumulation
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The gradient pass's products A.B over an [M, Nn] output, in one of two
+// forms that hold 4 x 4 accumulators a thread:
+//  - CUDA cores (kTC false): a thread's elements are rows tm + i M/4 and
+//    columns tn + j Nn/4 (M, Nn multiples of 4), exact f32 FMAs;
+//  - tensor cores (kTC): a warp's 16 x 32 tile (M a multiple of 16, Nn and
+//    K of 32 and 8) as four tf32 mma.sync m16n8k8; acc[t][e] is row
+//    m0 + g + 8 (e / 2), column n0 + 8 t + 2 t4 + e % 2 (g = lane / 4,
+//    t4 = lane % 4).
+// acc += A.B over k < K for the thread's elements
+__device__ __forceinline__ void fma_tile(float (&acc)[4][4], Op A, Op B,
+                                         int tm, int tn, int Mt, int Nt,
+                                         int K) {
+  const float* ap = A.p + tm * A.rs;
+  const float* bp = B.p + tn * B.cs;
+  const int ar = Mt * A.rs, bc = Nt * B.cs;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = ap[i * ar];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = bp[j * bc];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    ap += A.cs;
+    bp += B.rs;
+  }
+}
+
+__device__ __forceinline__ void mma_tile(float (&acc)[4][4], Op A, Op B,
+                                         int m0, int n0, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float* ap = A.p + (m0 + g) * A.rs + t4 * A.cs;
+  const float* bp = B.p + t4 * B.rs + (n0 + g) * B.cs;
+  const int a8 = 8 * A.rs, a4 = 4 * A.cs, b4 = 4 * B.rs, bn = 8 * B.cs;
+  for (int k = 0; k < K; k += 8) {
+    const uint32_t af[4] = {to_tf32(ap[0]), to_tf32(ap[a8]), to_tf32(ap[a4]),
+                            to_tf32(ap[a8 + a4])};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      mma1688(acc[t], af, to_tf32(bp[t * bn]), to_tf32(bp[t * bn + b4]));
+    ap += 8 * A.cs;
+    bp += 8 * B.rs;
+  }
+}
+
+// Row partials: each thread (kTC: each group of four lanes) sums the
+// shares epi returns over its elements of a row and writes the sum to
+// red[r * RW + slot], slot < slots<kTC>(Nn); the same slot for the same
+// thread in every product of one shape.  No atomics, a fixed order.
+template <bool kTC>
+__device__ __forceinline__ int slots(int Nn) {
+  return kTC ? Nn / 32 : Nn / 4;
+}
+
+// hands the thread's elements to epi(r, c, v) -> the element's share of
+// its row's partial, which goes to red when red is not null
+template <bool kTC, typename F>
+__device__ __forceinline__ void tile_out(const float (&acc)[4][4], int u0,
+                                         int u1, int Mt, int Nt, float* red,
+                                         int RW, F&& epi) {
+  if constexpr (!kTC) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = u0 + i * Mt;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s += epi(r, u1 + j * Nt, acc[i][j]);
+      if (red != nullptr) red[r * RW + u1] = s;
+    }
+  } else {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = u0 + g + 8 * hf;
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          s += epi(r, u1 + 8 * t + 2 * t4 + e, acc[t][2 * hf + e]);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (red != nullptr && t4 == 0) red[r * RW + u1 / 32] = s;
+    }
+  }
+}
+
+// The CTA's product A.B (first A1.B1 over K1, its rows scaled by
+// scale(r), then + A2.B2 over K2 when K2 > 0), handed to tile_out
+template <bool kTC, typename S, typename F>
+__device__ __forceinline__ void cta_mm(int M, int Nn, Op A1, Op B1, int K1,
+                                       S&& scale, Op A2, Op B2, int K2,
+                                       float* red, int RW, F&& epi) {
+  if constexpr (!kTC) {
+    const int Mt = M / 4, Nt = Nn / 4;
+    for (int t = threadIdx.x; t < Mt * Nt; t += blockDim.x) {
+      const int tm = t / Nt, tn = t - tm * Nt;
+      float acc[4][4] = {};
+      fma_tile(acc, A1, B1, tm, tn, Mt, Nt, K1);
+      if (K2 > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sc = scale(tm + i * Mt);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] *= sc;
+        }
+        fma_tile(acc, A2, B2, tm, tn, Mt, Nt, K2);
+      }
+      tile_out<false>(acc, tm, tn, Mt, Nt, red, RW, epi);
+    }
+  } else {
+    const int Nb = Nn / 32, g = (threadIdx.x & 31) >> 2;
+    for (int t = threadIdx.x >> 5; t < (M / 16) * Nb; t += blockDim.x >> 5) {
+      const int m0 = (t / Nb) * 16, n0 = (t - (t / Nb) * Nb) * 32;
+      float acc[4][4] = {};
+      mma_tile(acc, A1, B1, m0, n0, K1);
+      if (K2 > 0) {
+        const float s0 = scale(m0 + g), s1 = scale(m0 + g + 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] *= s0; acc[i][1] *= s0;
+          acc[i][2] *= s1; acc[i][3] *= s1;
+        }
+        mma_tile(acc, A2, B2, m0, n0, K2);
+      }
+      tile_out<true>(acc, m0, n0, 0, 0, red, RW, epi);
+    }
+  }
+}
+
+// one product, no second term
+template <bool kTC, typename F>
+__device__ __forceinline__ void cta_mm(int M, int Nn, int K, Op A, Op B,
+                                       float* red, int RW, F&& epi) {
+  cta_mm<kTC>(M, Nn, A, B, K, [](int) { return 1.f; }, A, B, 0, red, RW,
+              epi);
+}
+
+// (b') reverse state pass: one thread per 4 elements of (b, h)'s [P, N];
+// D_(nc-1) = dh_final (or 0), D_(c-1) = exp(cs_last,c) D_c + g_c over the
+// chunks from the last, loads four chunks ahead; D_c over slot c of gs,
+// which held g_(c+1)
+__global__ void __launch_bounds__(128) ssd_rpass_kernel(Args a, Grad g) {
+  const long long PN = (long long)a.P * a.N;
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e >= PN) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long cstride = (long long)a.H * PN;
+  float* gp = g.gs + ((long long)b * a.nc * a.H + h) * PN + e;
+  const float* dp = g.gdecay + (long long)b * a.nc * a.H + h;
+  float4 D = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g.dh != nullptr)
+    D = *reinterpret_cast<const float4*>(g.dh + ((long long)b * a.H + h) * PN +
+                                         e);
+  *reinterpret_cast<float4*>(gp + (a.nc - 1) * cstride) = D;
+  for (int c0 = a.nc - 2; c0 >= 0; c0 -= 4) {
+    float4 s[4];
+    float d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c0 - k >= 0) {
+        s[k] = *reinterpret_cast<const float4*>(gp + (c0 - k) * cstride);
+        d[k] = dp[(long long)(c0 - k) * a.H];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 - k;
+      if (c < 0) break;
+      D = make_float4(fmaf(d[k], D.x, s[k].x), fmaf(d[k], D.y, s[k].y),
+                      fmaf(d[k], D.z, s[k].z), fmaf(d[k], D.w, s[k].w));
+      *reinterpret_cast<float4*>(gp + c * cstride) = D;
+    }
+  }
+}
+
+// (c') gradient pass: one CTA of kTB threads per (chunk, head group, b).
+// C_c, B_c and C.B^T are staged once for the heads (f32); per head, P in
+// tiles of pt rows (dy, x, h_c, D_c), then the chunk's [Q, Q] terms.  dx
+// and ddt are written directly; dB and dC summed over the group's heads
+// into the CTA's own partials, dA's per (b, chunk, head) into dAp (no
+// atomics: ssd_bwd_finish sums them in a fixed order).  kTC: the products
+// on the tensor cores in tf32 (bf16 inputs with N and P multiples of 32);
+// else exact f32 FMAs on the CUDA cores.
+template <typename T, typename TD, bool kTC>
+__global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // pitches: odd for the FMA tiles, 4 mod 32 for the mma fragments, so
+  // that the rows and columns a warp reads fall in distinct banks
+  constexpr int Q = kQ, PAD = kTC ? 4 : 1, QS = Q + PAD;
+  const int N = a.N, P = a.P, PT = g.pt, NS = N + PAD, PS = PT + PAD;
+  const int RW = N / 4 > 16 ? N / 4 : 16, UR = PT / 4;
+  const int nslots = slots<kTC>(N), uslots = slots<kTC>(PT);
+  float* Cs = (float*)smem_raw;                           // [Q][NS]
+  float* Bs = Cs + Q * NS;                                // [Q][NS]
+  float* G = Bs + Q * NS;                                 // [Q][QS] C.B^T
+  float* M = G + Q * QS;                                  // [Q][QS] G o L; T
+  float* Y = M + Q * QS;                                  // [Q][PS] dy
+  float* X = Y + Q * PS;                                  // [Q][PS] x
+  float* Ht = X + Q * PS;                                 // [PT][NS] h_c
+  float* Dt = Ht + PT * NS;                               // [PT][NS] D_c
+  float* redu = Dt + PT * NS;                             // [Q][UR]
+  float* redb = redu + Q * UR;                            // [Q][RW]
+  float* redc = redb + Q * RW;                            // [Q][RW]
+  float* dts = redc + Q * RW;                             // [Q]
+  float* cs = dts + Q;                                    // [Q]
+  float* ein = cs + Q;                                    // [Q] exp(cs_i)
+  float* eout = ein + Q;                                  // [Q] exp(cl-cs_j)
+  float* xdu = eout + Q;                                  // [Q] x_j . du_j
+  float* dyw = xdu + Q;                                   // [Q] dy_i . w_i
+  float* uv = dyw + Q;                                    // [Q] u_j . v_j
+  float* dcs = uv + Q;                                    // [Q] dcs, then da
+  float* dhp = dcs + Q;                                   // [PT + 1]
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z, c0 = c * Q;
+  const int q = min(Q, a.S - c0);
+  const int h0 = grp * a.hg, h1 = min(h0 + a.hg, a.H);
+  const bool has_h = c > 0;                 // h_0 = 0
+  const long long PN = (long long)P * N;
+  const long long part =
+      (((long long)b * a.nc + c) * gridDim.y + grp) * Q * N;
+  float* dCp = g.dCp + part;
+  float* dBp = g.dBp + part;
+
+  const T* cp = (const T*)a.Cm + b * a.scb + (long long)c0 * a.scs;
+  const T* bp = (const T*)a.Bm + b * a.sbb + (long long)c0 * a.sbs;
+  for (int o = threadIdx.x; o < Q * N; o += kTB) {
+    const int j = o / N, n = o - j * N;
+    dCp[o] = 0.f;
+    dBp[o] = 0.f;
+    Cs[j * NS + n] = j < q ? to_f32(cp[j * a.scs + n]) : 0.f;
+    Bs[j * NS + n] = j < q ? to_f32(bp[j * a.sbs + n]) : 0.f;
+  }
+  __syncthreads();
+  cta_mm<kTC>(Q, Q, N, Op{Cs, NS, 1}, Op{Bs, 1, NS}, nullptr, 0,
+              [&](int r, int k, float v) {
+                G[r * QS + k] = v;
+                return 0.f;
+              });
+  // this thread's tile of S = dy.x^T: (tm, tn) of the FMA form, (m0, n0)
+  // of a warp's tile in the mma form
+  const int s0 = kTC ? (threadIdx.x >> 6) * 16 : threadIdx.x >> 4;
+  const int s1 = kTC ? ((threadIdx.x >> 5) & 1) * 32 : threadIdx.x & 15;
+
+  for (int h = h0; h < h1; ++h) {
+    __syncthreads();                // G is complete; the last head is done
+    if (threadIdx.x < 32) {
+      chunk_cumsum<TD>(a, b, c0, q, h, dts, cs);
+    } else if (threadIdx.x < 32 + Q) {
+      const int i = threadIdx.x - 32;
+      xdu[i] = dyw[i] = uv[i] = 0.f;
+    } else if (threadIdx.x == 32 + Q) {
+      dhp[PT] = 0.f;
+    }
+    __syncthreads();
+    const float cl = cs[Q - 1];
+    for (int i = threadIdx.x; i < Q; i += kTB) {
+      ein[i] = expf(cs[i]);
+      eout[i] = expf(cl - cs[i]);
+    }
+    for (int o = threadIdx.x; o < Q * Q; o += kTB) {
+      const int i = o / Q, j = o - i * Q;
+      M[i * QS + j] = j <= i ? G[i * QS + j] * expf(cs[i] - cs[j]) : 0.f;
+    }
+    float S[4][4] = {};             // S_ij = dy_i . x_j over the P tiles
+    const T* xb = (const T*)a.x + b * a.sxb + (long long)c0 * a.sxs +
+                  h * a.sxh;
+    const T* yb = (const T*)g.dy + b * g.sdyb + (long long)c0 * g.sdys +
+                  h * g.sdyh;
+    const float* hb =
+        has_h ? a.states + (((long long)b * a.nc + c - 1) * a.H + h) * PN
+              : nullptr;
+    const float* db = g.gs + (((long long)b * a.nc + c) * a.H + h) * PN;
+    T* dxb = (T*)g.dx + (((long long)b * a.S + c0) * a.H + h) * P;
+    const long long dxs = (long long)a.H * P;
+
+    for (int p0 = 0; p0 < P; p0 += PT) {
+      __syncthreads();              // M, ein, eout are built; the last
+                                    // tile is done
+      for (int o = threadIdx.x; o < Q * PT; o += kTB) {
+        const int j = o / PT, p = o - j * PT;
+        const bool ok = j < q;
+        Y[j * PS + p] = ok ? to_f32(yb[j * g.sdys + p0 + p]) : 0.f;
+        X[j * PS + p] = ok ? to_f32(xb[j * a.sxs + p0 + p]) : 0.f;
+      }
+      for (int o = threadIdx.x; o < PT * N; o += kTB) {
+        const int p = o / N, n = o - p * N;
+        Ht[p * NS + n] = has_h ? hb[(long long)(p0 + p) * N + n] : 0.f;
+        Dt[p * NS + n] = db[(long long)(p0 + p) * N + n];
+      }
+      __syncthreads();
+      if constexpr (kTC)
+        mma_tile(S, Op{Y, PS, 1}, Op{X, 1, PS}, s0, s1, PT);
+      else
+        fma_tile(S, Op{Y, PS, 1}, Op{X, 1, PS}, s0, s1, 16, 16, PT);
+      // du_j = exp(cs_last - cs_j) B_j.D^T + sum_i M_ij dy_i; dx = dt du;
+      // the x_j . du_j partials
+      cta_mm<kTC>(Q, PT, Op{Bs, NS, 1}, Op{Dt, 1, NS}, N,
+                  [&](int j) { return eout[j]; }, Op{M, 1, QS},
+                  Op{Y, PS, 1}, Q, redu, UR, [&](int j, int p, float v) {
+                    if (j < q) store(dxb + j * dxs + p0 + p, dts[j] * v);
+                    return X[j * PS + p] * v;
+                  });
+      // Z'_j = x_j^T D_c: dB_j += exp(cs_last - cs_j) dt_j Z'_j, and the
+      // B_j . Z'_j partials (u_j . v_j = dt_j B_j . Z'_j)
+      cta_mm<kTC>(Q, N, PT, Op{X, PS, 1}, Op{Dt, NS, 1}, redb, RW,
+                  [&](int j, int n, float v) {
+                    dBp[j * N + n] += eout[j] * dts[j] * v;
+                    return Bs[j * NS + n] * v;
+                  });
+      if (has_h) {
+        // Z_i = dy_i^T h_c: dC_i += exp(cs_i) Z_i, and the C_i . Z_i
+        // partials (dy_i . w_i = C_i . Z_i); <D_c, h_c> by rows of P
+        cta_mm<kTC>(Q, N, PT, Op{Y, PS, 1}, Op{Ht, NS, 1}, redc, RW,
+                    [&](int i, int n, float v) {
+                      dCp[i * N + n] += ein[i] * v;
+                      return Cs[i * NS + n] * v;
+                    });
+        for (int p = threadIdx.x; p < PT; p += kTB) {
+          float s = 0.f;
+          for (int n = 0; n < N; ++n)
+            s = fmaf(Dt[p * NS + n], Ht[p * NS + n], s);
+          dhp[p] = s;
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < Q) {
+        const int j = threadIdx.x;
+        float s = 0.f;
+        for (int k = 0; k < uslots; ++k) s += redu[j * UR + k];
+        xdu[j] += s;
+        s = 0.f;
+        for (int k = 0; k < nslots; ++k) s += redb[j * RW + k];
+        uv[j] += dts[j] * s;
+        if (has_h) {
+          s = 0.f;
+          for (int k = 0; k < nslots; ++k) s += redc[j * RW + k];
+          dyw[j] += s;
+        }
+      } else if (has_h && threadIdx.x == Q) {
+        float s = 0.f;
+        for (int p = 0; p < PT; ++p) s += dhp[p];
+        dhp[PT] += s;
+      }
+    }
+    __syncthreads();                // the vectors are complete, M is free
+    // T = L o (dy.u^T) over M, R = G o T: R's row partials into redc and
+    // column partials into redb
+    int rslots, cslots;
+    if constexpr (!kTC) {
+      float rr[4] = {0.f, 0.f, 0.f, 0.f}, rc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = s0 + i * 16;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = s1 + k * 16;
+          const float t =
+              j <= r ? expf(cs[r] - cs[j]) * dts[j] * S[i][k] : 0.f;
+          M[r * QS + j] = t;
+          const float v = G[r * QS + j] * t;
+          rr[i] += v;
+          rc[k] += v;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        redc[(s0 + i * 16) * RW + s1] = rr[i];
+        redb[(s1 + i * 16) * RW + s0] = rc[i];
+      }
+      rslots = cslots = Q / 4;
+    } else {
+      const int lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
+      float R[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = s0 + gq + 8 * (e >> 1);
+          const int j = s1 + 8 * t + 2 * t4 + (e & 1);
+          const float v =
+              j <= r ? expf(cs[r] - cs[j]) * dts[j] * S[t][e] : 0.f;
+          M[r * QS + j] = v;
+          R[t][e] = G[r * QS + j] * v;
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) s += R[t][2 * hf] + R[t][2 * hf + 1];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (t4 == 0) redc[(s0 + gq + 8 * hf) * RW + s1 / 32] = s;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = R[t][e] + R[t][e + 2];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (gq == 0) redb[(s1 + 8 * t + 2 * t4 + e) * RW + s0 / 16] = s;
+        }
+      rslots = Q / 32;
+      cslots = Q / 16;
+    }
+    __syncthreads();
+    if (threadIdx.x < Q) {          // dcs_i
+      const int i = threadIdx.x;
+      float r = 0.f;
+      for (int k = 0; k < rslots; ++k) r += redc[i * RW + k];
+      for (int k = 0; k < cslots; ++k) r -= redb[i * RW + k];
+      dcs[i] = r + ein[i] * dyw[i] - eout[i] * uv[i];
+    }
+    // the intra-chunk terms: dC_i += sum_j T_ij B_j, dB_j += sum_i T_ij C_i
+    cta_mm<kTC>(Q, N, Q, Op{M, QS, 1}, Op{Bs, NS, 1}, nullptr, 0,
+                [&](int i, int n, float v) {
+                  dCp[i * N + n] += v;
+                  return 0.f;
+                });
+    cta_mm<kTC>(Q, N, Q, Op{M, 1, QS}, Op{Cs, NS, 1}, nullptr, 0,
+                [&](int j, int n, float v) {
+                  dBp[j * N + n] += v;
+                  return 0.f;
+                });
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // the last token's terms, da_k = sum_(i >= k) dcs_i, dA's partial
+      float run = expf(cl) * dhp[PT];
+      for (int j = 0; j < Q; ++j) run = fmaf(eout[j], uv[j], run);
+      float da = 0.f;
+      for (int k = Q - 1; k >= 0; --k) {
+        run += dcs[k];
+        dcs[k] = run;
+        da = fmaf(dts[k], run, da);
+      }
+      g.dAp[((long long)b * a.nc + c) * a.H + h] = da;
+    }
+    __syncthreads();
+    if (threadIdx.x < q) {
+      const int k = threadIdx.x;
+      store((TD*)g.ddt + ((long long)b * a.S + c0 + k) * a.H + h,
+            xdu[k] + a.A[h] * dcs[k]);
+    }
+  }
+}
+
+size_t smem_grad(int N, int PT, int pad) {
+  const int NS = N + pad, QS = kQ + pad, PS = PT + pad;
+  const int RW = N / 4 > 16 ? N / 4 : 16;
+  return sizeof(float) * ((size_t)2 * kQ * NS + 2 * kQ * QS + 2 * kQ * PS +
+                          2 * PT * NS + kQ * (PT / 4) + 2 * kQ * RW + 8 * kQ +
+                          PT + 1);
+}
+
+// dB, dC: the groups' partials summed in order and cast (one CTA per
+// token); dA: the (b, chunk) partials summed in order (one CTA per head)
+template <typename T>
+__global__ void __launch_bounds__(128) ssd_bwd_finish(Args a, Grad g) {
+  const long long rows = (long long)a.B * a.S, row = blockIdx.x;
+  if (row >= rows) {
+    if (threadIdx.x == 0) {
+      const int h = (int)(row - rows);
+      float s = 0.f;
+      for (long long k = 0; k < (long long)a.B * a.nc; ++k)
+        s += g.dAp[k * a.H + h];
+      g.dA[h] = s;
+    }
+    return;
+  }
+  const int groups = (a.H + a.hg - 1) / a.hg;
+  const int b = (int)(row / a.S), t = (int)(row - (long long)b * a.S);
+  const int c = t / kQ, j = t - c * kQ;
+  const long long base = (((long long)b * a.nc + c) * groups * kQ + j) * a.N;
+  const long long gstride = (long long)kQ * a.N;
+  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    float sb = 0.f, sc = 0.f;
+    for (int gi = 0; gi < groups; ++gi) {
+      sb += g.dBp[base + gi * gstride + n];
+      sc += g.dCp[base + gi * gstride + n];
+    }
+    store((T*)g.dB + row * a.N + n, sb);
+    store((T*)g.dC + row * a.N + n, sc);
+  }
+}
+
 // ============================ launch =======================================
 
-template <typename K>
+template <typename K, typename... Ts>
 cudaError_t run(K kern, dim3 grid, int threads, size_t smem, cudaStream_t st,
-                const Args& a) {
+                const Ts&... args) {
   // dynamic shared memory above 48 KB is granted per kernel and per
   // device: asked before every launch, on the current device (a cheap
   // host call)
@@ -696,7 +1285,7 @@ cudaError_t run(K kern, dim3 grid, int threads, size_t smem, cudaStream_t st,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<grid, threads, smem, st>>>(a);
+  kern<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -706,7 +1295,7 @@ cudaError_t launch_bf16(Args& a, cudaStream_t st) {
   const int steps = a.h_final ? a.nc : a.nc - 1;    // chunk states needed
   cudaError_t e;
   if (steps > 0) {
-    e = run(ssd_state_bf16<TD>, dim3(steps, groups, a.B), kT,
+    e = run(ssd_state_bf16<TD, false>, dim3(steps, groups, a.B), kT,
             smem_state_bf16(a.N), st, a);
     if (e != cudaSuccess) return e;
     const long long n4 = (long long)a.P * a.N / 4;
@@ -724,7 +1313,7 @@ cudaError_t launch_f32(Args& a, cudaStream_t st) {
   const int steps = a.h_final ? a.nc : a.nc - 1;
   cudaError_t e;
   if (steps > 0) {
-    e = run(ssd_state_f32<TD>, dim3(steps, groups, a.B), kT,
+    e = run(ssd_state_f32<TD, false>, dim3(steps, groups, a.B), kT,
             smem_state_f32(a.N), st, a);
     if (e != cudaSuccess) return e;
     const long long n4 = (long long)a.P * a.N / 4;
@@ -734,6 +1323,64 @@ cudaError_t launch_f32(Args& a, cudaStream_t st) {
   }
   return run(ssd_out_f32<TD>, dim3(a.nc, groups, a.B), kT,
              smem_out_f32(a.N), st, a);
+}
+
+
+// The chunk pass of x's dtype T: the forward's (a), or with kGrad the
+// backward's (a')
+template <typename T, typename TD, bool kGrad>
+cudaError_t run_state(const Args& a, int steps, cudaStream_t st) {
+  const dim3 grid(steps, (a.H + a.hg - 1) / a.hg, a.B);
+  if constexpr (std::is_same<T, float>::value)
+    return run(ssd_state_f32<TD, kGrad>, grid, kT, smem_state_f32(a.N), st,
+               a);
+  else
+    return run(ssd_state_bf16<TD, kGrad>, grid, kT, smem_state_bf16(a.N),
+               st, a);
+}
+
+// The backward (dt f32): the forward's chunk and state passes recomputed
+// (h_c as f32 over the chunk states), then (a') on dy and C into gs, (b')
+// over gs, (c') and the last sums
+template <typename T>
+cudaError_t launch_bwd(const Args& a, const Grad& g, cudaStream_t st) {
+  using TD = float;
+  const int groups = (a.H + a.hg - 1) / a.hg;
+  const int steps = a.nc - 1;
+  const long long n4 = (long long)a.P * a.N / 4;
+  const dim3 pgrid((unsigned)((n4 + 127) / 128), a.H, a.B);
+  cudaError_t e;
+  if (steps > 0) {
+    if ((e = run_state<T, TD, false>(a, steps, st)) != cudaSuccess) return e;
+    ssd_pass_kernel<<<pgrid, 128, 0, st>>>(a, steps);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    Args ga = a;                    // (a'): x = dy, B = C, into gs
+    ga.x = g.dy;
+    ga.sxb = g.sdyb; ga.sxs = g.sdys; ga.sxh = g.sdyh;
+    ga.Bm = a.Cm;
+    ga.sbb = a.scb; ga.sbs = a.scs;
+    ga.states = g.gs;
+    ga.decay = g.gdecay;
+    if ((e = run_state<T, TD, true>(ga, steps, st)) != cudaSuccess) return e;
+  }
+  ssd_rpass_kernel<<<pgrid, 128, 0, st>>>(a, g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const dim3 grid(a.nc, groups, a.B);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.N % 32 == 0 && g.pt % 32 == 0)
+      e = run(ssd_grad_kernel<T, TD, true>, grid, kTB,
+              smem_grad(a.N, g.pt, 4), st, a, g);
+    else
+      e = run(ssd_grad_kernel<T, TD, false>, grid, kTB,
+              smem_grad(a.N, g.pt, 1), st, a, g);
+  } else {
+    e = run(ssd_grad_kernel<T, TD, false>, grid, kTB,
+            smem_grad(a.N, g.pt, 1), st, a, g);
+  }
+  if (e != cudaSuccess) return e;
+  ssd_bwd_finish<T><<<(unsigned)((long long)a.B * a.S + a.H), 128, 0, st>>>(
+      a, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -786,4 +1433,60 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   if (x_dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)(dt_dtype == 0 ? launch_bf16<float>(a, s)
                              : launch_bf16<__nv_bfloat16>(a, s));
+}
+
+
+// C entry point of the backward (bound with ctypes): the gradients of
+// repro_ssd_scan's y (and h_final) for the cotangents dy [B, S, H, P]
+// (x's dtype, read through sdyb/sdys/sdyh, last axis contiguous) and
+// dh_final [B, H, P, N] f32 contiguous (or null).  x, A, Bm, Cm, the
+// strides, x_dtype, heads_per_cta and vec (which covers dy as well) as
+// for repro_ssd_scan; dt is float32 (the wrapper converts a bfloat16 dt:
+// exact, and ddt comes back through the same rounding).  Writes dx
+// [B, S, H, P] and dB, dC [B, S, N] contiguous in x's dtype, ddt
+// [B, S, H] contiguous f32, dA [H] f32.  Scratch, all f32 (the wrapper's one allocation, 16-byte
+// aligned): states and decay [B, nc, H, P, N] and [B, nc, H] (null when
+// nc == 1), gs [B, nc, H, P, N], gdecay [B, nc, H], dBp and dCp [B, nc,
+// groups, 64, N], dAp [B, nc, H].  P a multiple of 16, N a multiple of 4
+// up to 128.  Launches up to six kernels; returns the first CUDA error, 0
+// when all launched.
+extern "C" int repro_ssd_scan_bwd(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* dy, const void* dh_final, void* dx,
+    void* ddt, void* dA, void* dB, void* dC, void* states, void* decay,
+    void* gs, void* gdecay, void* dBp, void* dCp, void* dAp, int B, int S,
+    int H, int P, int N, long long sxb, long long sxs, long long sxh,
+    long long sdb, long long sds, long long sdh, long long sbb, long long sbs,
+    long long scb, long long scs, long long sdyb, long long sdys,
+    long long sdyh, int x_dtype, int heads_per_cta, int vec, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % 16 || N <= 0 || N % 4 ||
+      N > kMaxNB || B > 65535 || H > 65535 || heads_per_cta <= 0 ||
+      (x_dtype != 0 && x_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x; a.dt = dt; a.A = (const float*)A; a.Bm = Bm; a.Cm = Cm;
+  a.y = nullptr;
+  a.h_final = nullptr;
+  a.states = (float*)states;
+  a.decay = (float*)decay;
+  a.hsplit = nullptr;               // the recomputed states stay f32
+  a.B = B; a.S = S; a.H = H; a.P = P; a.N = N;
+  a.nc = (S + kQ - 1) / kQ;
+  a.hg = heads_per_cta;
+  a.sxb = sxb; a.sxs = sxs; a.sxh = sxh; a.sdb = sdb; a.sds = sds;
+  a.sdh = sdh; a.sbb = sbb; a.sbs = sbs; a.scb = scb; a.scs = scs;
+  a.vec = vec;
+  Grad g;
+  g.dy = dy; g.dh = (const float*)dh_final; g.dx = dx; g.ddt = ddt;
+  g.dA = (float*)dA; g.dB = dB; g.dC = dC;
+  g.gs = (float*)gs; g.gdecay = (float*)gdecay;
+  g.dBp = (float*)dBp; g.dCp = (float*)dCp; g.dAp = (float*)dAp;
+  g.sdyb = sdyb; g.sdys = sdys; g.sdyh = sdyh;
+  g.pt = P % 64 == 0 ? 64 : P % 32 == 0 ? 32 : 16;
+  if ((a.nc > 1 && (!states || !decay || !gdecay)) || !gs || !dBp || !dCp ||
+      !dAp)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(x_dtype == 0 ? launch_bwd<float>(a, g, s)
+                             : launch_bwd<__nv_bfloat16>(a, g, s));
 }

@@ -10,6 +10,8 @@ asked for the CPU; any other device raises:
                       (csrc/flash_attention.cu)
     ssd_scan        — Mamba-2 SSD chunked scan, optional final state
                       (csrc/ssd_scan.cu)
+    ssd_scan_bwd    — its gradient, for the cotangents of y and the final
+                      state (csrc/ssd_scan.cu)
 
 Each name is the wrapper function itself, so ``ops.rmsnorm.launches`` is
 the kernel's launch counter.
@@ -20,6 +22,7 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
-__all__ = ["paged_attention", "rmsnorm", "flash_attention", "ssd_scan"]
+__all__ = ["paged_attention", "rmsnorm", "flash_attention", "ssd_scan",
+           "ssd_scan_bwd"]

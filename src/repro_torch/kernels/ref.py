@@ -198,6 +198,19 @@ SSD_SWEEP = [
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
+def _carry(decay, add, h, reverse=False):
+    """The recurrence over chunks h <- decay_c·h + add_c (decay [B, nc,
+    H], add [B, nc, H, P, N]), from h before the first chunk (the last
+    with ``reverse``): (each chunk's h before its update, stacked [B, nc,
+    H, P, N]; h after the last update)."""
+    before = [None] * add.shape[1]
+    for c in (reversed(range(len(before))) if reverse else
+              range(len(before))):
+        before[c] = h
+        h = decay[:, c, :, None, None] * h + add[:, c]
+    return torch.stack(before, 1), h
+
+
 def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 64,
                        round_bf16: bool = False, return_final: bool = False):
     """The SSD-scan kernels' decomposition in plain torch (shapes as
@@ -247,12 +260,8 @@ def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 64,
     decay = torch.exp(last[:, :, 0])                      # [B,nc,H]
 
     # (b) state pass
-    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = decay[:, c, :, None, None] * h + states[:, c]
-    h_in = torch.stack(h_in, 1)                           # [B,nc,H,P,N]
+    h_in, h = _carry(decay, states, torch.zeros(
+        (Bb, H, P, N), dtype=torch.float32, device=x.device))
 
     # (c) output pass
     cb = torch.einsum("bcin,bcjn->bcij", cm, bs)          # [B,nc,Q,Q]
@@ -266,6 +275,67 @@ def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int = 64,
     y = torch.exp(cs)[..., None] * y_off + y_diag
     y = y.reshape(Bb, nc * Q, H, P)[:, :S].to(x.dtype)
     return (y, h) if return_final else y
+
+
+def ref_ssd_bwd(x, dt, A, Bm, Cm, dy, dh_final=None, *, chunk: int = 64):
+    """The SSD scan's gradient in the backward kernel's passes (the
+    header of ``csrc/ssd_scan.cu`` derives them), in f32: ``dy`` [B,S,H,P]
+    the cotangent of y, ``dh_final`` [B,H,P,N] that of the final state (or
+    None) -> (dx, ddt, dA, dB, dC) in their inputs' dtypes.  Chunks of
+    ``chunk`` tokens, zero-padded: the forward's passes give h_c, the state
+    entering chunk c; (a') g_c = Σ_i exp(cs_i)·dy_i ⊗ C_i; (b') D_c, the
+    gradient of the state leaving chunk c (D_last = dh_final or 0), D_{c−1}
+    = exp(cs_last,c)·D_c + g_c; (c') du, dx = dt·du, dB and dC (summed over
+    heads), and the decay's gradient reverse-summed into ddt and dA."""
+    (Bb, S, H, P), N = x.shape, Bm.shape[-1]
+    Q, nc = chunk, -(-S // chunk)
+    f = lambda t: torch.nn.functional.pad(   # noqa: E731
+        t.float(), (0, 0) * (t.dim() - 2) + (0, nc * Q - S))
+    xs, dys = (f(t).reshape(Bb, nc, Q, H, P) for t in (x, dy))
+    bs, cm = (f(t).reshape(Bb, nc, Q, N) for t in (Bm, Cm))
+    dts, Af = f(dt).reshape(Bb, nc, Q, H), A.float()
+    cs = torch.cumsum(dts * Af, dim=2)                    # [B,nc,Q,H]
+    last = cs[:, :, -1]                                   # [B,nc,H]
+    e_in, e_out = torch.exp(cs), torch.exp(last[:, :, None] - cs)
+    u = xs * dts[..., None]                               # [B,nc,Q,H,P]
+
+    # the forward's chunk and state passes (h_c entering each chunk), then
+    # (a') the chunk pass and (b') the reverse state pass (D_c)
+    states = torch.einsum("bcqhp,bcqn->bchpn", u * e_out[..., None], bs)
+    zero = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    h_in, _ = _carry(torch.exp(last), states, zero)
+    g = torch.einsum("bcqhp,bcqn->bchpn", dys * e_in[..., None], cm)
+    Ds, _ = _carry(torch.exp(last), g, zero if dh_final is None
+                   else dh_final.float(), reverse=True)
+
+    # (c') gradient pass
+    G = torch.einsum("bcin,bcjn->bcij", cm, bs)           # [B,nc,Q,Q]
+    csh = cs.permute(0, 1, 3, 2)                          # [B,nc,H,Q]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri, csh[..., :, None] - csh[..., None, :],
+                              float("-inf")))             # [B,nc,H,Q,Q]
+    v = torch.einsum("bchpn,bcjn->bcjhp", Ds, bs)         # D_c·B_j
+    w = torch.einsum("bchpn,bcin->bcihp", h_in, cm)       # h_c·C_i
+    du = (torch.einsum("bcij,bchij,bcihp->bcjhp", G, L, dys)
+          + e_out[..., None] * v)
+    T = L * torch.einsum("bcihp,bcjhp->bchij", dys, u)    # L_ij (dy_i·u_j)
+    R = G[:, :, None] * T
+    dC = (torch.einsum("bchij,bcjn->bcin", T, bs)
+          + torch.einsum("bcihp,bchpn->bcin", dys * e_in[..., None], h_in))
+    dB = (torch.einsum("bchij,bcin->bcjn", T, cm)
+          + torch.einsum("bcjhp,bchpn->bcjn", u * e_out[..., None], Ds))
+    uv = (u * v).sum(-1)                                  # [B,nc,Q,H]
+    dcs = (R.sum(-1) - R.sum(-2)).permute(0, 1, 3, 2) \
+        + e_in * (dys * w).sum(-1) - e_out * uv           # [B,nc,Q,H]
+    dcs[:, :, -1] += (e_out * uv).sum(2) \
+        + torch.exp(last) * (Ds * h_in).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
+    ddt = (xs * du).sum(-1) + Af * da
+    dA = (dts * da).sum((0, 1, 2))
+    out = lambda t, like: t.reshape(  # noqa: E731
+        (Bb, nc * Q) + tuple(t.shape[3:]))[:, :S].to(like.dtype)
+    return (out(du * dts[..., None], x), out(ddt, dt), dA.to(A.dtype),
+            out(dB, Bm), out(dC, Cm))
 
 
 def ref_ssd(x, dt, A, Bm, Cm, *, return_final: bool = False):

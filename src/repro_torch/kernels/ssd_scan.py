@@ -30,6 +30,19 @@ There is no fallback from the one to the other, and no host read of a
 device tensor.  The kernels read their inputs through their strides (the
 model hands them slices of the conv output, rows 1792 elements apart);
 only a last axis that is not contiguous is copied.
+
+:func:`ssd_scan_bwd` is the scan's gradient, launched by the model's
+``SSDScan.backward`` once a layer.  It replaces no TPU kernel: the
+reference differentiates its chunked math with XLA.  One call runs the
+forward's chunk and state passes again (the f32 states entering each
+chunk; the forward saves nothing but its inputs), the gradient's chunk
+pass (the same kernels on dy and C), a reverse state pass, the gradient
+pass (one CTA per (b, chunk, group of heads); its products tf32
+``mma.sync`` for bf16 when N and P are multiples of 32, exact f32 FMAs
+otherwise) and a last pass that sums the per-CTA partials of dA, dB and
+dC in a fixed order, and counts as one launch in
+``ssd_scan_bwd.launches``.
+Its scratch is one ``torch.empty`` (:func:`bwd_scratch`).
 """
 
 from __future__ import annotations
@@ -39,11 +52,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import count_launch
-from repro_torch.kernels.ref import ref_ssd
+from repro_torch.kernels.ref import ref_ssd, ref_ssd_bwd
 
 NAME = "ssd_scan"
 P_TILE = 16                         # P must be a multiple of this
 MAX_STATE = 256                     # largest N the shared-memory plan takes
+MAX_STATE_BWD = 128                 # largest N the backward's plan takes
 CHUNK = 64                          # tokens a chunk (csrc kQ)
 _TARGET_CTAS = 264                  # CTAs the head groups aim for (2 a SM)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +71,17 @@ def _entry():
         # strides as 64-bit ints
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_entry():
+    from repro_torch.kernels.build import library
+    fn = library(NAME).repro_ssd_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 13 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -84,13 +109,37 @@ def scratch_bytes(B, S, H, P, N, final, dtype) -> int:
     return 4 * B * nc * H * (P * N + 1) + split
 
 
-def _vec_ok(x, Bm, Cm, N) -> bool:
-    """x, Bm and Cm take 16-byte loads: aligned pointers, and strides (of
-    axes longer than 1) and N in 16-byte units."""
+def bwd_scratch(B, S, H, P, N):
+    """[(name, bytes)] of the backward's f32 scratch, in its order in the
+    one allocation (each part 256-byte aligned): the recomputed chunk
+    states and decays (none for one chunk), g then D per chunk and the
+    decays of (a'), the per-CTA partials of dB and dC (one [64, N] per
+    (b, chunk, head group)) and of dA."""
+    nc, hg = plan(B, S, H)
+    groups = -(-H // hg)
+    pn, per = 4 * B * nc * H * P * N, 4 * B * nc * H
+    part = 4 * B * nc * groups * CHUNK * N
+    return [("states", pn if nc > 1 else 0), ("decay", per if nc > 1 else 0),
+            ("gs", pn), ("gdecay", per), ("dBp", part), ("dCp", part),
+            ("dAp", per)]
+
+
+def _align(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def bwd_scratch_bytes(B, S, H, P, N) -> int:
+    return sum(_align(n) for _, n in bwd_scratch(B, S, H, P, N))
+
+
+def _vec_ok(x, Bm, Cm, N, *more) -> bool:
+    """x, Bm and Cm (and ``more``, x's shape) take 16-byte loads: aligned
+    pointers, and strides (of axes longer than 1) and N in 16-byte
+    units."""
     el = x.element_size()
     if N * el % 16:
         return False
-    for t in (x, Bm, Cm):
+    for t in (x, Bm, Cm) + more:
         if t.data_ptr() % 16:
             return False
         if any(st * el % 16 for st, n in zip(t.stride()[:-1], t.shape[:-1])
@@ -115,6 +164,15 @@ def _check(x, dt, A, Bm, Cm):
     return B, S, H, P, Bm.shape[-1]
 
 
+def _check_types(x, dt, A, Bm, Cm, what):
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
+            or dt.dtype not in _DTYPES or A.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 or bfloat16 x/Bm/Cm of one "
+                        f"dtype, float32 or bfloat16 dt and float32 A; got "
+                        f"{x.dtype}/{Bm.dtype}/{Cm.dtype}, {dt.dtype}, "
+                        f"{A.dtype}")
+
+
 def _last_contiguous(t):
     return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
 
@@ -134,12 +192,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
         return ref_ssd(x, dt, A, Bm, Cm, return_final=return_final)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no ssd_scan kernel for {x.device}")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
-            or dt.dtype not in _DTYPES or A.dtype != torch.float32:
-        raise TypeError(f"ssd_scan takes float32 or bfloat16 x/Bm/Cm of one "
-                        f"dtype, float32 or bfloat16 dt and float32 A; got "
-                        f"{x.dtype}/{Bm.dtype}/{Cm.dtype}, {dt.dtype}, "
-                        f"{A.dtype}")
+    _check_types(x, dt, A, Bm, Cm, "ssd_scan")
     if P % P_TILE or N % 4 or not 0 < N <= MAX_STATE:
         raise ValueError(f"ssd_scan kernel takes P a multiple of {P_TILE} "
                          f"and N a multiple of 4 up to {MAX_STATE}; got "
@@ -186,3 +239,91 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh_final=None):
+    """The gradients of :func:`ssd_scan` (shapes as there) for the
+    cotangents ``dy`` [B,S,H,P] of y and ``dh_final`` [B,H,P,N] of the
+    final state (None: y only) -> (dx, ddt, dA, dB, dC) in x's, dt's, A's
+    (f32), Bm's and Cm's dtypes.  A CUDA tensor launches the backward
+    kernels of ``csrc/ssd_scan.cu`` (the forward's chunk and state passes
+    recomputed, then the gradient's chunk, reverse state and gradient
+    passes and the last sums; one launch in ``ssd_scan_bwd.launches``) or
+    raises; a CPU tensor runs ``ref.ref_ssd_bwd``, the same decomposition
+    in plain torch.  Sums across CTAs (dA over tokens, dB and dC over head
+    groups) go through scratch in a fixed order: two calls give equal
+    bits."""
+    B, S, H, P, N = _check(x, dt, A, Bm, Cm)
+    if tuple(dy.shape) != tuple(x.shape) or (
+            dh_final is not None and tuple(dh_final.shape) != (B, H, P, N)):
+        got = None if dh_final is None else tuple(dh_final.shape)
+        raise ValueError(f"ssd_scan_bwd takes dy shaped as x "
+                         f"{tuple(x.shape)} and dh_final [B,H,P,N]; got "
+                         f"{tuple(dy.shape)}, {got}")
+    ts = (x, dt, A, Bm, Cm, dy) + (() if dh_final is None else (dh_final,))
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"ssd_scan_bwd inputs span devices {devs}")
+    if x.device.type == "cpu":
+        return ref_ssd_bwd(x, dt, A, Bm, Cm, dy, dh_final, chunk=CHUNK)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"no ssd_scan_bwd kernel for {x.device}")
+    _check_types(x, dt, A, Bm, Cm, "ssd_scan_bwd")
+    if dy.dtype != x.dtype or (dh_final is not None
+                               and not dh_final.is_floating_point()):
+        raise TypeError(f"ssd_scan_bwd takes dy in x's dtype {x.dtype} and a "
+                        f"floating dh_final; got {dy.dtype}, "
+                        f"{None if dh_final is None else dh_final.dtype}")
+    if P % P_TILE or N % 4 or not 0 < N <= MAX_STATE_BWD:
+        raise ValueError(f"ssd_scan_bwd kernel takes P a multiple of "
+                         f"{P_TILE} and N a multiple of 4 up to "
+                         f"{MAX_STATE_BWD}; got P={P}, N={N}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B={B}, H={H} exceed the kernel's grid")
+    dev = x.device
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dB = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    if B * S * H * P == 0:
+        for t in (dx, ddt, dA, dB, dC):
+            t.zero_()
+        return dx, ddt.to(dt.dtype), dA, dB, dC
+    nc, hg = plan(B, S, H)
+    x, Bm, Cm, dy = (_last_contiguous(t) for t in (x, Bm, Cm, dy))
+    A, dt_dtype = A.contiguous(), dt.dtype
+    dt = dt.float()             # the kernels take f32 dt (exact from bf16)
+    dh = None
+    if dh_final is not None:
+        dh = dh_final.float().contiguous()
+        if dh.data_ptr() % 16:
+            dh = dh.clone()
+    parts = bwd_scratch(B, S, H, P, N)
+    scratch = torch.empty(sum(_align(n) for _, n in parts),
+                          dtype=torch.uint8, device=dev)
+    ptr, at = {}, scratch.data_ptr()
+    for name, n in parts:
+        ptr[name] = at if n else None
+        at += _align(n)
+    err = _bwd_entry()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), ptr["states"], ptr["decay"], ptr["gs"], ptr["gdecay"],
+        ptr["dBp"], ptr["dCp"], ptr["dAp"],
+        B, S, H, P, N,
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+        dy.stride(0), dy.stride(1), dy.stride(2),
+        _DTYPES[x.dtype], hg, int(_vec_ok(x, Bm, Cm, N, dy)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    count_launch(ssd_scan_bwd)
+    return dx, ddt.to(dt_dtype), dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0

@@ -5,11 +5,13 @@ within a chunk the output is the quadratic (attention-like) form masked by
 the cumulative decay; across chunks a recurrence carries the state
 [H, P, N].  ``ssd_chunked`` launches the hand-written Hopper SSD-scan
 kernel (``kernels.ops.ssd_scan``) on CUDA tensors, under autograd through
-:class:`SSDScan` (the kernel forward; the backward differentiates the
-plain chunked math, as the reference's XLA does); on CPU tensors it runs
+:class:`SSDScan`, whose backward launches the hand-written gradient
+kernel (``kernels.ops.ssd_scan_bwd``: the gradient the reference's XLA
+derives from its chunked math); on CPU tensors it runs
 ``ssd_chunked_plain``, the reference's chunked math line for line (the
-kernel's plain version beside ``kernels.ref.ref_ssd``), because a CPU
-tensor means the caller asked for the CPU.  Any other device raises.
+kernel's plain version beside ``kernels.ref.ref_ssd``), and autograd
+differentiates it, because a CPU tensor means the caller asked for the
+CPU.  Any other device raises.
 
 Decode: a single recurrent state update per token (``ssd_decode_step``),
 O(H*P*N) per step, in plain torch ops, as the reference computes it
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core.ops import promoted
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense
+from repro_torch.parallel.sharding import is_dtensor
 
 # torch.einsum with jnp's promotion (torch refuses mixed dtypes)
 _promoted_einsum = promoted(lambda *xs, expr: torch.einsum(expr, *xs))
@@ -106,43 +109,43 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, chunk: int,
 
 class SSDScan(torch.autograd.Function):
     """The SSD scan as autograd sees it: the forward launches the SSD-scan
-    kernel (``kops.ssd_scan``; its plain version on CPU tensors) and saves
-    only the inputs; the backward recomputes :func:`ssd_chunked_plain`
-    under ``enable_grad`` and returns its gradients.  That is the
-    reference's own gradient: XLA differentiates the plain chunked math,
-    and neither package has a backward kernel.  Nothing here reads the
+    kernel (``kops.ssd_scan``) and saves only the inputs; the backward
+    launches the gradient kernel (``kops.ssd_scan_bwd``, which recomputes
+    the chunk states from the inputs) once, for the cotangents that
+    arrived (``None`` ones are absent), and returns ``None`` for inputs
+    that need no gradient.  That is the gradient XLA derives from the
+    reference's chunked math (``src/repro/models/ssm.py:34``); the
+    reference has no backward kernel.  On CPU tensors both wrappers run
+    their plain versions (``ref_ssd``, ``ref_ssd_bwd``); on CUDA tensors
+    a kernel that cannot build or launch raises.  Nothing here reads the
     device on the host, so a captured train step holds both passes."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk, return_final):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
-        ctx.chunk, ctx.return_final = chunk, return_final
+        ctx.return_final = return_final
         ctx.set_materialize_grads(False)
         return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                              return_final=return_final)
 
     @staticmethod
     def backward(ctx, *grads):
-        inputs = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(t.requires_grad)
-                  for t in inputs]
-            out = ssd_chunked_plain(*xs, ctx.chunk, ctx.return_final)
-            outs = out if ctx.return_final else (out,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-            wrt = [x for x in xs if x.requires_grad]
-            gs = iter(torch.autograd.grad([o for o, _ in pairs],
-                                          wrt, [g for _, g in pairs],
-                                          allow_unused=True))
-        return tuple(next(gs) if x.requires_grad else None
-                     for x in xs) + (None, None)
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        dy, dh = grads if ctx.return_final else (grads[0], None)
+        if dy is None and dh is None:
+            return (None,) * 7
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        gs = kops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh)
+        return tuple(g if need else None for g, need in
+                     zip(gs, ctx.needs_input_grad)) + (None, None)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
                 unroll: bool = False):
     """SSD forward (shapes as ``ssd_chunked_plain``).  CUDA tensors launch
     the SSD-scan kernel, through :class:`SSDScan` when autograd records
-    (the kernel forward, the plain math's gradients); CPU tensors run the
+    (the kernel forward, the gradient kernel backward); CPU tensors run the
     plain chunked math, and so do ``meta`` tensors (the dry run's shape
     propagation: nothing is computed); any other device raises.
     ``unroll`` (the reference's dry-run switch) is kept only so that the
@@ -162,12 +165,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final: bool = False,
     return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, return_final)
 
 
-def _on_rows(fn, *args):
+def _on_rows(fn, *args, replicated=()):
     """``fn(*args)`` on each card's batch rows (the SSD math is
     independent per row): DTensor arguments are laid out batch-sharded,
-    1-d ones (``A``) replicated, ``fn`` runs on the local shards, and its
-    outputs are DTensors of the batch layout.  DTensor's own einsums
-    mis-view some sharded operands.  Without DTensors, ``fn(*args)``."""
+    1-d ones (``A``) and those at the positions in ``replicated`` (a
+    weight) replicated, ``fn`` runs on the local shards, and its outputs
+    are DTensors of the batch layout.  DTensor's own einsums mis-view some
+    sharded operands.  Without DTensors, ``fn(*args)``."""
     from torch.distributed.tensor import DTensor
     from repro_torch.parallel.sharding import as_dtensor, logical
     ts = [a for a in args if isinstance(a, torch.Tensor)]
@@ -175,11 +179,13 @@ def _on_rows(fn, *args):
         return fn(*args)
     mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
     pl, local = None, []
-    for a in args:
+    for i, a in enumerate(args):
         if isinstance(a, torch.Tensor):
+            rows = a.ndim > 1 and i not in replicated
             a = logical(as_dtensor(a, mesh), *(
-                [None] if a.ndim == 1 else ["batch"] + [None] * (a.ndim - 1)))
-            if a.ndim > 1 and pl is None:
+                ["batch"] + [None] * (a.ndim - 1) if rows
+                else [None] * a.ndim))
+            if rows and pl is None:
                 pl = a.placements
             a = a.to_local()
         local.append(a)
@@ -214,6 +220,30 @@ def _ssd_decode_math(state, x, dt, A, Bm, Cm):
 # Full Mamba-2 block (projections + conv + SSD + gate)
 # --------------------------------------------------------------------------
 
+def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes):
+    """Between mamba2_block's projections: the split into (z gate, x, B,
+    C, dt heads), dt = softplus(dt + dt_bias) and the depthwise causal
+    conv over (x, B, C) as in Mamba-2, after the window ``conv_state``
+    [B, K-1, dc] (zeros when None).  Returns (z, dt, silu(conv), the new
+    window: the last K-1 rows, or None without a state)."""
+    z, xin, Bm, Cm, dt = torch.split(zxbcdt, sizes, dim=-1)
+    dt = F.softplus(dt + dt_bias)                                # [B,S,H]
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                   # [B,S,dc]
+    B, S, dc = conv_in.shape
+    K = w_conv.shape[-1]
+    new_conv_state = None
+    if conv_state is None:
+        pad = torch.zeros((B, K - 1, dc), dtype=conv_in.dtype,
+                          device=conv_in.device)
+        ci = torch.cat([pad, conv_in], dim=1)
+    else:
+        ci = torch.cat([conv_state, conv_in], dim=1)
+        new_conv_state = ci[:, -(K - 1):]
+    win = torch.stack([ci[:, i:i + S] for i in range(K)], dim=-1)  # [B,S,dc,K]
+    conv_out = F.silu(_einsum("bsdk,dk->bsd", win, w_conv))
+    return z, dt, conv_out, new_conv_state
+
+
 def mamba2_block(p, x, cfg, *, cache=None):
     """x: [B, S, d].  cache: None or dict(conv [B,K-1,dc], ssm [B,H,P,N]).
 
@@ -224,26 +254,20 @@ def mamba2_block(p, x, cfg, *, cache=None):
     B, S, d = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_inner = H * P
-    K = cfg.conv_kernel
 
     zxbcdt = dense(x, p["w_in"])            # [B,S, 2*d_inner + 2*N + H]
-    z, xin, Bm, Cm, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H],
-                                     dim=-1)
-    dt = F.softplus(dt + p["dt_bias"])               # [B,S,H]
-
-    # depthwise causal conv over (x, B, C) as in Mamba-2
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                   # [B,S,dc]
-    dc = conv_in.shape[-1]
-    new_conv_state = None
-    if cache is None:
-        pad = torch.zeros((B, K - 1, dc), dtype=conv_in.dtype,
-                          device=x.device)
-        ci = torch.cat([pad, conv_in], dim=1)
+    sizes = [d_inner, d_inner, N, N, H]
+    if cache is not None and is_dtensor(cache["conv"]):
+        # a cache under a mesh: its conv window is sharded over the model
+        # axis on its width, and DTensor's cat, stack and einsum over that
+        # layout fail on some torch versions
+        z, dt, conv_out, new_conv_state = _on_rows(
+            _mix, zxbcdt, p["dt_bias"], p["w_conv"], cache["conv"], sizes,
+            replicated=(2,))
     else:
-        ci = torch.cat([cache["conv"], conv_in], dim=1)
-        new_conv_state = ci[:, -(K - 1):]
-    win = torch.stack([ci[:, i:i + S] for i in range(K)], dim=-1)  # [B,S,dc,K]
-    conv_out = F.silu(_einsum("bsdk,dk->bsd", win, p["w_conv"]))
+        z, dt, conv_out, new_conv_state = _mix(
+            zxbcdt, p["dt_bias"], p["w_conv"],
+            None if cache is None else cache["conv"], sizes)
     xc, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
     xc = xc.reshape(B, S, H, P)
 

@@ -412,17 +412,22 @@ def test_ssd_scan_function_gradients_match_reference(case, return_final,
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_chunked_raises_under_autograd(card):
+def test_cuda_ssd_chunked_raises_under_autograd(card, monkeypatch):
     """(Name kept from when the kernel had no backward and this raised.)
     On the card a call that autograd differentiates goes through
-    ``SSDScan``: the forward launches the kernel once (no plain
-    fallback) and matches the no-grad kernel call exactly; the gradients
-    of every input equal all-plain autograd of ``ssd_chunked_plain``."""
+    ``SSDScan``: the forward launches the SSD-scan kernel once and
+    matches the no-grad kernel call exactly; the backward launches the
+    gradient kernel once and calls no plain version (``ssd_chunked_plain``
+    and ``ref_ssd_bwd`` raise while it runs); its gradients of every
+    input equal all-plain autograd of ``ssd_chunked_plain`` within f32
+    1e-4 and bf16 5e-2 of the largest value."""
+    SS = sys.modules["repro_torch.kernels.ssd_scan"]
     for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
         case = SSD_SWEEP[0]
         t = _typed(_ssd_inputs(case), dtype, card)
         xs = [a.clone().requires_grad_(True) for a in t]
         before = kops.ssd_scan.launches
+        bwd = kops.ssd_scan_bwd.launches
         y = TS.ssd_chunked(*xs, case[-1])
         assert kops.ssd_scan.launches == before + 1
         with torch.no_grad():
@@ -430,11 +435,19 @@ def test_cuda_ssd_chunked_raises_under_autograd(card):
         torch.testing.assert_close(y, y0, rtol=0, atol=0)
         w = torch.randn(y.shape, generator=torch.Generator(card)
                         .manual_seed(0), device=card).to(y.dtype)
-        got = torch.autograd.grad((y.float() * w.float()).sum(), xs)
+
+        def plain(*a, **k):
+            raise AssertionError("a plain version ran on the card")
+        with monkeypatch.context() as m:
+            m.setattr(TS, "ssd_chunked_plain", plain)
+            m.setattr(SS, "ref_ssd_bwd", plain)
+            got = torch.autograd.grad((y.float() * w.float()).sum(), xs)
         assert kops.ssd_scan.launches == before + 2
+        assert kops.ssd_scan_bwd.launches == bwd + 1
         ps = [a.clone().requires_grad_(True) for a in t]
         yp = TS.ssd_chunked_plain(*ps, case[-1])
         want = torch.autograd.grad((yp.float() * w.float()).sum(), ps)
         for g, wg in zip(got, want):
+            assert g.dtype == wg.dtype
             scale = wg.float().abs().max()
             assert (g.float() - wg.float()).abs().max() <= tol * scale
