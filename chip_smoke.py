@@ -1893,10 +1893,15 @@ def ssd_kernel_row():
 
 
 # of the largest value: against all-plain autograd, and against
-# ref_ssd_bwd (the same passes in f32: only the kernel's tf32 operands and
-# bf16 outputs differ, 4.8e-3 at most on the card)
+# ref_ssd_bwd (the same passes in f32: only the kernel's bf16 hi + lo
+# operands and bf16 outputs differ)
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 SSD_BWD_REF_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2}
+# bf16 against ref_ssd_bwd(..., round_bf16=True), the emulation of the
+# kernel's rounding points on the inputs in f32: half a bf16 step of the
+# largest value (2^-8) from the outputs' rounding, plus the order of f32
+# sums
+SSD_BWD_EMU_TOL = 5e-3
 SSD_BWD_NAME = "ssd_scan_bwd[mamba2 training 8x2048]"
 # (label, B, S, dh_final): the serving prefill (with the final state's
 # cotangent), the launcher's training shape and a ragged length
@@ -1954,15 +1959,19 @@ def ssd_bwd_kernel_row():
     model's strided conv-slice inputs, a ragged length), and at
     SSD_BWD_PATH also against all-plain autograd of ssd_chunked_plain, f32
     and bf16: every gradient within SSD_BWD_REF_TOL (SSD_BWD_TOL against
-    plain autograd) of its largest value, no NaN, and a second call equal
-    to the bit.  Then timed at the training shape in bf16 over rotating
-    inputs (together > the L2): CUDA events a call in three turns (the
-    median) and the profiler's device time split per kernel, beside the
-    plain backward (autograd of ssd_chunked_plain with its forward
-    recompute, the path the kernel replaces) and the bound; the kernels'
-    registers and spills from the build log.  No PyTorch call computes
-    the SSD scan's gradient.  The row's launches come from phase
-    launch."""
+    plain autograd) of its largest value, bf16 also within SSD_BWD_EMU_TOL
+    of ref_ssd_bwd(..., round_bf16=True) (the emulation of its rounding
+    points), no NaN, and a second call equal to the bit.  Then timed at
+    the training shape in bf16 over rotating inputs (together > the L2):
+    CUDA events a call in three turns (the median) and the profiler's
+    device time split per kernel, its sum beside the event time (flagged
+    when it covers less than 90 % of it: the profiler drops events at
+    some shapes), beside the plain backward (autograd of ssd_chunked_plain
+    with its forward recompute, the path the kernel replaces) and the
+    bound; the kernels' registers and spills from the build log, and the
+    gradient pass's shared memory a CTA and CTAs a SM as the card reports
+    them (ssd_scan.grad_occupancy).  No PyTorch call computes the SSD
+    scan's gradient.  The row's launches come from phase launch."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
@@ -1977,6 +1986,11 @@ def ssd_bwd_kernel_row():
         name = str(args[0].dtype).replace("torch.", "")
         tols = {"ref_ssd_bwd": SSD_BWD_REF_TOL[name]}
         errs = {"ref_ssd_bwd": grad_errs(got, ref_ssd_bwd(*args, dy, dh))}
+        if name == "bfloat16":
+            tols["emulation"] = SSD_BWD_EMU_TOL
+            errs["emulation"] = grad_errs(got, ref_ssd_bwd(
+                *(a.float() for a in args), dy.float(), dh,
+                round_bf16=True))
         if chunk is not None:
             tols["plain autograd"] = SSD_BWD_TOL[name]
             errs["plain autograd"] = grad_errs(got, plain_ssd_grads(
@@ -2035,11 +2049,23 @@ def ssd_bwd_kernel_row():
             for k, r, sp in ptxas_entries(build.LOGS.get("ssd_scan", ""))
             if k.startswith(("ssd_grad", "ssd_rpass", "ssd_bwd"))
             or k.endswith(",true>")]
+    occ = SS.grad_occupancy(MAMBA_N, MAMBA_P, torch.bfloat16)
+    cover = dev / ms
+    log(f"ssd_scan_bwd bf16 gradient pass at N={MAMBA_N}, P={MAMBA_P}: "
+        f"{occ['smem_bytes']} bytes of shared memory a CTA, "
+        f"{occ['ctas_per_sm']} CTA(s) a SM of {occ['threads']} threads, "
+        f"{occ['registers']} registers and {occ['local_bytes']} local "
+        f"bytes a thread (cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
+        f"cudaFuncGetAttributes)")
     log(f"ssd_scan_bwd bf16 training [{B},{S},{MAMBA_H},{MAMBA_P}] "
         f"N={MAMBA_N} (chunks, heads a CTA {SS.plan(B, S, MAMBA_H)}, "
         f"scratch {scratch / 1e6:.1f} MB): {ms:.4f} ms a call by CUDA "
         f"events (turns " + ", ".join(f"{d:.4f}" for d in runs)
-        + f"); profiler device time {dev:.4f} ms, per kernel "
+        + f"); profiler device time {dev:.4f} ms summed over its kernels, "
+        f"{100 * cover:.1f} % of the event time"
+        + (" (under 90 %: the profiler lost events, the split is partial)"
+           if cover < 0.9 else "")
+        + ", per kernel "
         + "; ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f"; {ms / bound:.1f}x the bound {bound:.5f} ms ({by}); plain "
         f"(autograd of ssd_chunked_plain with its recompute) {plain_ms:.3f}"

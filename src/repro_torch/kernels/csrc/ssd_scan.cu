@@ -91,33 +91,44 @@
 //       exp(cs_i) dy_i C_i^T, the gradient reaching h_c from y;
 //  (b') the reverse state pass, ssd_rpass_kernel: D_(c-1) = exp(cs_last,c)
 //       D_c + g_c over the chunks from the last, in f32;
-//  (c') the gradient pass, ssd_grad_kernel: one CTA of 256 threads per
-//       (b, chunk, group of heads) stages C_c, B_c and C.B^T once; per
-//       head du = (C.B^T o L)^T dy + exp(cs_last - cs_j) D_c B_j (dx = dt
-//       du), T = L o (dy u^T), dC = T B + exp(cs_i) dy^T h_c, dB = T^T C +
+//  (c') the gradient pass (ssd_grad_bf16, ssd_grad_f32): one CTA per (b,
+//       chunk, group of heads) stages C_c, B_c and C.B^T once; per head
+//       du = (C.B^T o L)^T dy + exp(cs_last - cs_j) D_c B_j (dx = dt du),
+//       T = L o (dy u^T), dC = T B + exp(cs_i) dy^T h_c, dB = T^T C +
 //       exp(cs_last - cs_j) u^T D_c, and the decay's gradient dcs (row
 //       sums of C.B^T o T minus its column sums, and the state terms)
 //       reverse-summed into da: ddt = x . du + A da, dA's partial;
 //  and ssd_bwd_finish sums the per-CTA partials of dB and dC (over head
 //  groups) and of dA (over b and chunks) in a fixed order: no atomics,
-//  so two calls give equal bits.  The products of (c') run as tf32
-//  mma.sync m16n8k8 on the tensor cores for bf16 inputs when N and P are
-//  multiples of 32 (operands that are not bf16 already lose ~2^-11 in
-//  tf32; with the bf16 outputs' rounding, within 1.5e-2 of the largest
-//  value of kernels/ref.ref_ssd_bwd, which computes the same passes in
-//  plain torch) and as exact f32 FMAs otherwise (f32 inputs: 1e-4).
+//  so two calls give equal bits.
+// bfloat16 (ssd_grad_bf16, 16 warps, 128 registers, 232,000 bytes of
+// shared memory at N = 128: one CTA a SM): every product of (c') runs on
+// the bf16 tensor cores as mma.sync m16n8k16 with ldmatrix fragments; C,
+// B, x and dy enter as they come, and h_c, D_c, M = C.B^T o L and T enter
+// as bf16 hi + lo in two products (the forward's rule; the chunk passes
+// already take theirs so), whose rounding points
+// kernels/ref.ref_ssd_bwd(..., round_bf16=True) emulates.  N below a
+// multiple of 16 is zero-padded; P runs in blocks of 64.  C.B^T stays in
+// registers across the heads, and so do dB and dC, written once a CTA; the
+// next item's tiles (dy, x, f32 h_c and D_c, the next head's dt) are in
+// flight by cp.async while one computes, and h_c and D_c are split into
+// hi + lo once, in shared memory.  f32 (ssd_grad_f32, 8 warps): the same
+// passes in exact f32 FMAs on the CUDA cores, as the f32 gates (1e-4)
+// need.
 // Bound at the training shape (x [8, 2048, 24, 64] bf16, N = 128): x, dt,
 // B, C and dy read once and their gradients written once are 169.4 MB
 // (0.0506 ms at 3.35 TB/s); the products over the causal token pairs of
 // the 64-token chunks are ~42 GFLOP (0.043 ms at the bf16 tensor-core
-// peak): bytes bound it.  The first form (every product an f32 FMA) read
-// 4.22 ms a call; the tf32 form 2.77, ~55x the bound, 2.21 of it the
-// gradient pass (NVIDIA H100 80GB HBM3, 700.00 W).  What holds (c')
-// there: one 227 KB CTA of 8 warps a SM, its fragments loaded element by
-// element from f32 shared memory, and dB and dC accumulated in global
-// (L2) partials by read-modify-write; and the scratch: the recomputed
-// states and g/D [B, nc, H, P, N] f32 are each written and read (0.4 GB
-// at the training shape).
+// peak): bytes bound it.  The gradient pass alone moves ~0.58 GB (its
+// f32 h_c and D_c the most), ~0.17 ms.  What holds it above that
+// (tools/ssd_grad_parts.py switches its parts off one at a time): no
+// single part; its products, loads, split and tails each cost a share,
+// and with one CTA a SM (the f32 tiles of the next item and the bf16
+// split fill shared memory) latency is hidden by 16 warps only.  8 warps
+// a CTA (kCW = 2, 232 registers) were slower, and wgmma would shorten
+// only the products' share.  The other passes stream the recomputed
+// states and g/D, [B, nc, H, P, N] f32 each written and read (0.4 GB at
+// the training shape); PERF.md has the times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,6 +195,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
+// 4-byte async copy; zero-fills the destination when !ok (src unread)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -237,24 +256,17 @@ __device__ void stage_rows(T* dst, int pitch, const T* src, long long rstride,
   }
 }
 
-// One warp: dts[j] = dt of token c0 + j (0 past q) and cs[j] = the
-// inclusive cumsum of dts * A_h over the chunk of kQ = 32 E tokens;
-// returns cs[kQ - 1] in every lane.  The chunk and output passes run this
-// same code, so they agree on cs to the bit.
-template <typename TD>
-__device__ __forceinline__ float chunk_cumsum(const Args& a, int b, int c0,
-                                              int q, int h, float* dts,
-                                              float* cs) {
-  constexpr int E = kQ / 32;
+// One warp, from d = this lane's dt of tokens lane * E + e (0 past the
+// chunk's end): cs[j] = the inclusive cumsum of dt * ah over the chunk of
+// kQ = 32 E tokens; returns cs[kQ - 1] in every lane
+template <int E>
+__device__ __forceinline__ float cumsum_core(const float (&d)[E], float ah,
+                                             float* cs) {
   const int lane = threadIdx.x & 31;
-  const TD* dtp = (const TD*)a.dt + b * a.sdb + h * a.sdh;
-  const float ah = a.A[h];
-  float d[E], p[E];
+  float p[E];
   float run = 0.f;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    const int j = lane * E + e;
-    d[e] = j < q ? to_f32(dtp[(long long)(c0 + j) * a.sds]) : 0.f;
     run += d[e] * ah;
     p[e] = run;
   }
@@ -267,11 +279,29 @@ __device__ __forceinline__ float chunk_cumsum(const Args& a, int b, int c0,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    dts[lane * E + e] = d[e];
-    cs[lane * E + e] = excl + p[e];
-  }
+  for (int e = 0; e < E; ++e) cs[lane * E + e] = excl + p[e];
   return __shfl_sync(0xffffffffu, excl + p[E - 1], 31);
+}
+
+// One warp: dts[j] = dt of token c0 + j (0 past q) and cs[j] = the
+// inclusive cumsum of dts * A_h over the chunk; returns cs[kQ - 1] in
+// every lane.  Every pass runs this same arithmetic (cumsum_core), so they
+// agree on cs to the bit.
+template <typename TD>
+__device__ __forceinline__ float chunk_cumsum(const Args& a, int b, int c0,
+                                              int q, int h, float* dts,
+                                              float* cs) {
+  constexpr int E = kQ / 32;
+  const int lane = threadIdx.x & 31;
+  const TD* dtp = (const TD*)a.dt + b * a.sdb + h * a.sdh;
+  float d[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = lane * E + e;
+    d[e] = j < q ? to_f32(dtp[(long long)(c0 + j) * a.sds]) : 0.f;
+    dts[j] = d[e];
+  }
+  return cumsum_core(d, a.A[h], cs);
 }
 
 // ============================ bfloat16 =====================================
@@ -735,9 +765,14 @@ __global__ void __launch_bounds__(128) ssd_pass_kernel(Args a, int steps) {
 
 // ============================ backward =====================================
 
-constexpr int kTB = 256;            // threads of the gradient pass
+constexpr int kTB = 256;            // threads of the f32 gradient pass
 constexpr int kMaxNB = 128;         // largest N the gradient pass takes
+constexpr int kCW = 4;              // column groups of the bf16 pass's warps
+constexpr int kGW = 4 * kCW;        // its warps: 4 tiles of 16 rows x kCW
+constexpr int kTBG = 32 * kGW;      // its threads
 static_assert(kQ * kQ / 16 == kTB, "one 4 x 4 tile of dy.x^T a thread");
+static_assert(kPB == kQ && kQ / kCW >= 16 && kMaxNB / kCW >= 16,
+              "the bf16 gradient pass's warp tiles");
 
 struct Grad {
   const void* dy;                   // [B, S, H, P] through sdyb/sdys/sdyh
@@ -753,12 +788,23 @@ struct Grad {
   float* dCp;
   float* dAp;                       // [B, nc, H]
   long long sdyb, sdys, sdyh;
-  int pt;                           // rows of P a tile of the gradient pass
+  int pt;                           // rows of P a tile of the f32 pass
 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ void st_u32(__nv_bfloat16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+__device__ __forceinline__ float2 ld_bf16x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // A matrix in shared memory: element (r, k) at p[r * rs + k * cs].
@@ -767,30 +813,9 @@ struct Op {
   int rs, cs;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// d += a . b: m16n8k8, a row-major [16 x 8], b column-major [8 x 8], tf32
-// in, f32 accumulation
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The gradient pass's products A.B over an [M, Nn] output, in one of two
-// forms that hold 4 x 4 accumulators a thread:
-//  - CUDA cores (kTC false): a thread's elements are rows tm + i M/4 and
-//    columns tn + j Nn/4 (M, Nn multiples of 4), exact f32 FMAs;
-//  - tensor cores (kTC): a warp's 16 x 32 tile (M a multiple of 16, Nn and
-//    K of 32 and 8) as four tf32 mma.sync m16n8k8; acc[t][e] is row
-//    m0 + g + 8 (e / 2), column n0 + 8 t + 2 t4 + e % 2 (g = lane / 4,
-//    t4 = lane % 4).
+// The f32 gradient pass's products A.B over an [M, Nn] output (M, Nn
+// multiples of 4), exact f32 FMAs on the CUDA cores: a thread holds a
+// 4 x 4 tile, rows tm + i M/4 and columns tn + j Nn/4.
 // acc += A.B over k < K for the thread's elements
 __device__ __forceinline__ void fma_tile(float (&acc)[4][4], Op A, Op B,
                                          int tm, int tn, int Mt, int Nt,
@@ -814,114 +839,46 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][4], Op A, Op B,
   }
 }
 
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], Op A, Op B,
-                                         int m0, int n0, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* ap = A.p + (m0 + g) * A.rs + t4 * A.cs;
-  const float* bp = B.p + t4 * B.rs + (n0 + g) * B.cs;
-  const int a8 = 8 * A.rs, a4 = 4 * A.cs, b4 = 4 * B.rs, bn = 8 * B.cs;
-  for (int k = 0; k < K; k += 8) {
-    const uint32_t af[4] = {to_tf32(ap[0]), to_tf32(ap[a8]), to_tf32(ap[a4]),
-                            to_tf32(ap[a8 + a4])};
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      mma1688(acc[t], af, to_tf32(bp[t * bn]), to_tf32(bp[t * bn + b4]));
-    ap += 8 * A.cs;
-    bp += 8 * B.rs;
-  }
-}
-
-// Row partials: each thread (kTC: each group of four lanes) sums the
-// shares epi returns over its elements of a row and writes the sum to
-// red[r * RW + slot], slot < slots<kTC>(Nn); the same slot for the same
-// thread in every product of one shape.  No atomics, a fixed order.
-template <bool kTC>
-__device__ __forceinline__ int slots(int Nn) {
-  return kTC ? Nn / 32 : Nn / 4;
-}
-
-// hands the thread's elements to epi(r, c, v) -> the element's share of
-// its row's partial, which goes to red when red is not null
-template <bool kTC, typename F>
-__device__ __forceinline__ void tile_out(const float (&acc)[4][4], int u0,
-                                         int u1, int Mt, int Nt, float* red,
-                                         int RW, F&& epi) {
-  if constexpr (!kTC) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = u0 + i * Mt;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s += epi(r, u1 + j * Nt, acc[i][j]);
-      if (red != nullptr) red[r * RW + u1] = s;
-    }
-  } else {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = u0 + g + 8 * hf;
-      float s = 0.f;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          s += epi(r, u1 + 8 * t + 2 * t4 + e, acc[t][2 * hf + e]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (red != nullptr && t4 == 0) red[r * RW + u1 / 32] = s;
-    }
-  }
-}
-
 // The CTA's product A.B (first A1.B1 over K1, its rows scaled by
-// scale(r), then + A2.B2 over K2 when K2 > 0), handed to tile_out
-template <bool kTC, typename S, typename F>
+// scale(r), then + A2.B2 over K2 when K2 > 0): each thread hands its
+// elements to epi(r, c, v), which returns the element's share of its row's
+// partial; the thread's sum of a row goes to red[r * RW + tn] when red is
+// not null (the same slot for the same thread in every product of one
+// shape: no atomics, a fixed order)
+template <typename S, typename F>
 __device__ __forceinline__ void cta_mm(int M, int Nn, Op A1, Op B1, int K1,
                                        S&& scale, Op A2, Op B2, int K2,
                                        float* red, int RW, F&& epi) {
-  if constexpr (!kTC) {
-    const int Mt = M / 4, Nt = Nn / 4;
-    for (int t = threadIdx.x; t < Mt * Nt; t += blockDim.x) {
-      const int tm = t / Nt, tn = t - tm * Nt;
-      float acc[4][4] = {};
-      fma_tile(acc, A1, B1, tm, tn, Mt, Nt, K1);
-      if (K2 > 0) {
+  const int Mt = M / 4, Nt = Nn / 4;
+  for (int t = threadIdx.x; t < Mt * Nt; t += blockDim.x) {
+    const int tm = t / Nt, tn = t - tm * Nt;
+    float acc[4][4] = {};
+    fma_tile(acc, A1, B1, tm, tn, Mt, Nt, K1);
+    if (K2 > 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float sc = scale(tm + i * Mt);
+      for (int i = 0; i < 4; ++i) {
+        const float sc = scale(tm + i * Mt);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] *= sc;
-        }
-        fma_tile(acc, A2, B2, tm, tn, Mt, Nt, K2);
+        for (int j = 0; j < 4; ++j) acc[i][j] *= sc;
       }
-      tile_out<false>(acc, tm, tn, Mt, Nt, red, RW, epi);
+      fma_tile(acc, A2, B2, tm, tn, Mt, Nt, K2);
     }
-  } else {
-    const int Nb = Nn / 32, g = (threadIdx.x & 31) >> 2;
-    for (int t = threadIdx.x >> 5; t < (M / 16) * Nb; t += blockDim.x >> 5) {
-      const int m0 = (t / Nb) * 16, n0 = (t - (t / Nb) * Nb) * 32;
-      float acc[4][4] = {};
-      mma_tile(acc, A1, B1, m0, n0, K1);
-      if (K2 > 0) {
-        const float s0 = scale(m0 + g), s1 = scale(m0 + g + 8);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] *= s0; acc[i][1] *= s0;
-          acc[i][2] *= s1; acc[i][3] *= s1;
-        }
-        mma_tile(acc, A2, B2, m0, n0, K2);
-      }
-      tile_out<true>(acc, m0, n0, 0, 0, red, RW, epi);
+    for (int i = 0; i < 4; ++i) {
+      const int r = tm + i * Mt;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s += epi(r, tn + j * Nt, acc[i][j]);
+      if (red != nullptr) red[r * RW + tn] = s;
     }
   }
 }
 
 // one product, no second term
-template <bool kTC, typename F>
+template <typename F>
 __device__ __forceinline__ void cta_mm(int M, int Nn, int K, Op A, Op B,
                                        float* red, int RW, F&& epi) {
-  cta_mm<kTC>(M, Nn, A, B, K, [](int) { return 1.f; }, A, B, 0, red, RW,
-              epi);
+  cta_mm(M, Nn, A, B, K, [](int) { return 1.f; }, A, B, 0, red, RW, epi);
 }
 
 // (b') reverse state pass: one thread per 4 elements of (b, h)'s [P, N];
@@ -962,23 +919,22 @@ __global__ void __launch_bounds__(128) ssd_rpass_kernel(Args a, Grad g) {
   }
 }
 
-// (c') gradient pass: one CTA of kTB threads per (chunk, head group, b).
-// C_c, B_c and C.B^T are staged once for the heads (f32); per head, P in
-// tiles of pt rows (dy, x, h_c, D_c), then the chunk's [Q, Q] terms.  dx
-// and ddt are written directly; dB and dC summed over the group's heads
-// into the CTA's own partials, dA's per (b, chunk, head) into dAp (no
-// atomics: ssd_bwd_finish sums them in a fixed order).  kTC: the products
-// on the tensor cores in tf32 (bf16 inputs with N and P multiples of 32);
-// else exact f32 FMAs on the CUDA cores.
-template <typename T, typename TD, bool kTC>
-__global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
+// (c') gradient pass, float32: one CTA of kTB threads per (chunk, head
+// group, b), exact f32 FMAs on the CUDA cores.  C_c, B_c and C.B^T are
+// staged once for the heads; per head, P in tiles of pt rows (dy, x, h_c,
+// D_c), then the chunk's [Q, Q] terms.  dx and ddt are written directly;
+// dB and dC summed over the group's heads into the CTA's own partials,
+// dA's per (b, chunk, head) into dAp (no atomics: ssd_bwd_finish sums them
+// in a fixed order).  Pitches are odd, so that the rows and columns a
+// thread's neighbours read fall in distinct banks.
+template <typename TD>
+__global__ void __launch_bounds__(kTB, 1) ssd_grad_f32(Args a, Grad g) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // pitches: odd for the FMA tiles, 4 mod 32 for the mma fragments, so
-  // that the rows and columns a warp reads fall in distinct banks
-  constexpr int Q = kQ, PAD = kTC ? 4 : 1, QS = Q + PAD;
-  const int N = a.N, P = a.P, PT = g.pt, NS = N + PAD, PS = PT + PAD;
+  constexpr int Q = kQ, QS = Q + 1;
+  const int N = a.N, P = a.P, PT = g.pt, NS = N + 1, PS = PT + 1;
   const int RW = N / 4 > 16 ? N / 4 : 16, UR = PT / 4;
-  const int nslots = slots<kTC>(N), uslots = slots<kTC>(PT);
+  const int nslots = N / 4, uslots = PT / 4;
   float* Cs = (float*)smem_raw;                           // [Q][NS]
   float* Bs = Cs + Q * NS;                                // [Q][NS]
   float* G = Bs + Q * NS;                                 // [Q][QS] C.B^T
@@ -1015,19 +971,17 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
     const int j = o / N, n = o - j * N;
     dCp[o] = 0.f;
     dBp[o] = 0.f;
-    Cs[j * NS + n] = j < q ? to_f32(cp[j * a.scs + n]) : 0.f;
-    Bs[j * NS + n] = j < q ? to_f32(bp[j * a.sbs + n]) : 0.f;
+    Cs[j * NS + n] = j < q ? cp[j * a.scs + n] : 0.f;
+    Bs[j * NS + n] = j < q ? bp[j * a.sbs + n] : 0.f;
   }
   __syncthreads();
-  cta_mm<kTC>(Q, Q, N, Op{Cs, NS, 1}, Op{Bs, 1, NS}, nullptr, 0,
-              [&](int r, int k, float v) {
-                G[r * QS + k] = v;
-                return 0.f;
-              });
-  // this thread's tile of S = dy.x^T: (tm, tn) of the FMA form, (m0, n0)
-  // of a warp's tile in the mma form
-  const int s0 = kTC ? (threadIdx.x >> 6) * 16 : threadIdx.x >> 4;
-  const int s1 = kTC ? ((threadIdx.x >> 5) & 1) * 32 : threadIdx.x & 15;
+  cta_mm(Q, Q, N, Op{Cs, NS, 1}, Op{Bs, 1, NS}, nullptr, 0,
+         [&](int r, int k, float v) {
+           G[r * QS + k] = v;
+           return 0.f;
+         });
+  // this thread's 4 x 4 tile (tm, tn) of S = dy.x^T
+  const int s0 = threadIdx.x >> 4, s1 = threadIdx.x & 15;
 
   for (int h = h0; h < h1; ++h) {
     __syncthreads();                // G is complete; the last head is done
@@ -1067,8 +1021,8 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
       for (int o = threadIdx.x; o < Q * PT; o += kTB) {
         const int j = o / PT, p = o - j * PT;
         const bool ok = j < q;
-        Y[j * PS + p] = ok ? to_f32(yb[j * g.sdys + p0 + p]) : 0.f;
-        X[j * PS + p] = ok ? to_f32(xb[j * a.sxs + p0 + p]) : 0.f;
+        Y[j * PS + p] = ok ? yb[j * g.sdys + p0 + p] : 0.f;
+        X[j * PS + p] = ok ? xb[j * a.sxs + p0 + p] : 0.f;
       }
       for (int o = threadIdx.x; o < PT * N; o += kTB) {
         const int p = o / N, n = o - p * N;
@@ -1076,33 +1030,30 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
         Dt[p * NS + n] = db[(long long)(p0 + p) * N + n];
       }
       __syncthreads();
-      if constexpr (kTC)
-        mma_tile(S, Op{Y, PS, 1}, Op{X, 1, PS}, s0, s1, PT);
-      else
-        fma_tile(S, Op{Y, PS, 1}, Op{X, 1, PS}, s0, s1, 16, 16, PT);
+      fma_tile(S, Op{Y, PS, 1}, Op{X, 1, PS}, s0, s1, 16, 16, PT);
       // du_j = exp(cs_last - cs_j) B_j.D^T + sum_i M_ij dy_i; dx = dt du;
       // the x_j . du_j partials
-      cta_mm<kTC>(Q, PT, Op{Bs, NS, 1}, Op{Dt, 1, NS}, N,
-                  [&](int j) { return eout[j]; }, Op{M, 1, QS},
-                  Op{Y, PS, 1}, Q, redu, UR, [&](int j, int p, float v) {
-                    if (j < q) store(dxb + j * dxs + p0 + p, dts[j] * v);
-                    return X[j * PS + p] * v;
-                  });
+      cta_mm(Q, PT, Op{Bs, NS, 1}, Op{Dt, 1, NS}, N,
+             [&](int j) { return eout[j]; }, Op{M, 1, QS}, Op{Y, PS, 1}, Q,
+             redu, UR, [&](int j, int p, float v) {
+               if (j < q) store(dxb + j * dxs + p0 + p, dts[j] * v);
+               return X[j * PS + p] * v;
+             });
       // Z'_j = x_j^T D_c: dB_j += exp(cs_last - cs_j) dt_j Z'_j, and the
       // B_j . Z'_j partials (u_j . v_j = dt_j B_j . Z'_j)
-      cta_mm<kTC>(Q, N, PT, Op{X, PS, 1}, Op{Dt, NS, 1}, redb, RW,
-                  [&](int j, int n, float v) {
-                    dBp[j * N + n] += eout[j] * dts[j] * v;
-                    return Bs[j * NS + n] * v;
-                  });
+      cta_mm(Q, N, PT, Op{X, PS, 1}, Op{Dt, NS, 1}, redb, RW,
+             [&](int j, int n, float v) {
+               dBp[j * N + n] += eout[j] * dts[j] * v;
+               return Bs[j * NS + n] * v;
+             });
       if (has_h) {
         // Z_i = dy_i^T h_c: dC_i += exp(cs_i) Z_i, and the C_i . Z_i
         // partials (dy_i . w_i = C_i . Z_i); <D_c, h_c> by rows of P
-        cta_mm<kTC>(Q, N, PT, Op{Y, PS, 1}, Op{Ht, NS, 1}, redc, RW,
-                    [&](int i, int n, float v) {
-                      dCp[i * N + n] += ein[i] * v;
-                      return Cs[i * NS + n] * v;
-                    });
+        cta_mm(Q, N, PT, Op{Y, PS, 1}, Op{Ht, NS, 1}, redc, RW,
+               [&](int i, int n, float v) {
+                 dCp[i * N + n] += ein[i] * v;
+                 return Cs[i * NS + n] * v;
+               });
         for (int p = threadIdx.x; p < PT; p += kTB) {
           float s = 0.f;
           for (int n = 0; n < N; ++n)
@@ -1133,8 +1084,7 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
     __syncthreads();                // the vectors are complete, M is free
     // T = L o (dy.u^T) over M, R = G o T: R's row partials into redc and
     // column partials into redb
-    int rslots, cslots;
-    if constexpr (!kTC) {
+    {
       float rr[4] = {0.f, 0.f, 0.f, 0.f}, rc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1155,62 +1105,26 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
         redc[(s0 + i * 16) * RW + s1] = rr[i];
         redb[(s1 + i * 16) * RW + s0] = rc[i];
       }
-      rslots = cslots = Q / 4;
-    } else {
-      const int lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
-      float R[4][4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = s0 + gq + 8 * (e >> 1);
-          const int j = s1 + 8 * t + 2 * t4 + (e & 1);
-          const float v =
-              j <= r ? expf(cs[r] - cs[j]) * dts[j] * S[t][e] : 0.f;
-          M[r * QS + j] = v;
-          R[t][e] = G[r * QS + j] * v;
-        }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) s += R[t][2 * hf] + R[t][2 * hf + 1];
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (t4 == 0) redc[(s0 + gq + 8 * hf) * RW + s1 / 32] = s;
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float s = R[t][e] + R[t][e + 2];
-          s += __shfl_xor_sync(0xffffffffu, s, 4);
-          s += __shfl_xor_sync(0xffffffffu, s, 8);
-          s += __shfl_xor_sync(0xffffffffu, s, 16);
-          if (gq == 0) redb[(s1 + 8 * t + 2 * t4 + e) * RW + s0 / 16] = s;
-        }
-      rslots = Q / 32;
-      cslots = Q / 16;
     }
     __syncthreads();
     if (threadIdx.x < Q) {          // dcs_i
       const int i = threadIdx.x;
       float r = 0.f;
-      for (int k = 0; k < rslots; ++k) r += redc[i * RW + k];
-      for (int k = 0; k < cslots; ++k) r -= redb[i * RW + k];
+      for (int k = 0; k < Q / 4; ++k) r += redc[i * RW + k];
+      for (int k = 0; k < Q / 4; ++k) r -= redb[i * RW + k];
       dcs[i] = r + ein[i] * dyw[i] - eout[i] * uv[i];
     }
     // the intra-chunk terms: dC_i += sum_j T_ij B_j, dB_j += sum_i T_ij C_i
-    cta_mm<kTC>(Q, N, Q, Op{M, QS, 1}, Op{Bs, NS, 1}, nullptr, 0,
-                [&](int i, int n, float v) {
-                  dCp[i * N + n] += v;
-                  return 0.f;
-                });
-    cta_mm<kTC>(Q, N, Q, Op{M, 1, QS}, Op{Cs, NS, 1}, nullptr, 0,
-                [&](int j, int n, float v) {
-                  dBp[j * N + n] += v;
-                  return 0.f;
-                });
+    cta_mm(Q, N, Q, Op{M, QS, 1}, Op{Bs, NS, 1}, nullptr, 0,
+           [&](int i, int n, float v) {
+             dCp[i * N + n] += v;
+             return 0.f;
+           });
+    cta_mm(Q, N, Q, Op{M, 1, QS}, Op{Cs, NS, 1}, nullptr, 0,
+           [&](int j, int n, float v) {
+             dBp[j * N + n] += v;
+             return 0.f;
+           });
     __syncthreads();
     if (threadIdx.x == 0) {
       // the last token's terms, da_k = sum_(i >= k) dcs_i, dA's partial
@@ -1233,12 +1147,548 @@ __global__ void __launch_bounds__(kTB, 1) ssd_grad_kernel(Args a, Grad g) {
   }
 }
 
-size_t smem_grad(int N, int PT, int pad) {
-  const int NS = N + pad, QS = kQ + pad, PS = PT + pad;
+size_t smem_grad_f32(int N, int PT) {
+  const int NS = N + 1, QS = kQ + 1, PS = PT + 1;
   const int RW = N / 4 > 16 ? N / 4 : 16;
   return sizeof(float) * ((size_t)2 * kQ * NS + 2 * kQ * QS + 2 * kQ * PS +
                           2 * PT * NS + kQ * (PT / 4) + 2 * kQ * RW + 8 * kQ +
                           PT + 1);
+}
+
+// (c') gradient pass, bfloat16: one CTA of kGW = 16 warps per (chunk,
+// head group, b), every product mma.sync m16n8k16 bf16 x bf16 -> f32 with
+// fragments loaded by ldmatrix (the transposed operands by
+// ldmatrix.trans).  C_c, B_c, dy and x enter as they come; h_c, D_c, M = G
+// o L and T enter as bf16 hi + lo in two products (the forward's rule).
+// Warp w owns rows 16 (w % 4) of the chunk and, by w / 4, a quarter of
+// the columns: of the [Q, Q] tiles (G = C.B^T, kept in registers for all
+// the heads, S = dy.x^T; tiles wholly above the diagonal skipped), of
+// du's [Q, 64] and of dB's and dC's [Q, N], whose sums over the CTA's
+// heads stay in registers and are written once, as 16-byte stores, into
+// the CTA's partials.  A CTA works through items (head, block of 64 rows
+// of P): while one item computes, the next one's dy and x (strided) and
+// f32 h_c and D_c, and the next head's dt, are in flight by cp.async; at
+// an item's start its h_c and D_c are split into bf16 hi + lo in shared
+// memory, once.  Row sums are shuffles within quads (columns: across the
+// eight row groups) into per-warp slots; <D_c, h_c> a warp reduction;
+// da's reverse sum over the chunk a warp scan, on the last warp while the
+// first scans the next head's dt; all in a fixed order, so two calls give
+// equal bits.
+template <typename TD>
+__global__ void __launch_bounds__(kTBG, 1) ssd_grad_bf16(Args a, Grad g) {
+  using T = __nv_bfloat16;
+  static_assert(std::is_same<TD, float>::value, "the backward's dt is f32");
+  constexpr int Q = kQ, XP = kXP, KT = Q / 16;
+  // a warp's columns: of the [Q, Q] tiles, of du's block and of dB and dC
+  constexpr int QW = Q / kCW, PW = kPB / kCW, NW = kMaxNB / kCW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = a.N, P = a.P, NK = kpad(N), NP = NK + 8;
+  T* Cs = (T*)smem_raw;                                   // [Q][NP]
+  T* Bs = Cs + Q * NP;                                    // [Q][NP]
+  T* Hh = Bs + Q * NP;                // [kPB][NP] h_c hi, lo; D_c hi, lo
+  T* Hl = Hh + kPB * NP;
+  T* Dh = Hl + kPB * NP;
+  T* Dl = Dh + kPB * NP;
+  T* Mh = Dl + kPB * NP;              // [Q][XP] M = G o L, then T: hi, lo
+  T* Ml = Mh + Q * XP;
+  T* Ys = Ml + Q * XP;                // [2][Q][XP] dy by item parity
+  T* Xs = Ys + 2 * Q * XP;            // [2][Q][XP] x
+  float* Rh = (float*)(Xs + 2 * Q * XP);  // [kPB][NK] the next item's h_c
+  float* Rd = Rh + kPB * NK;                                   // D_c
+  float* dtr = Rd + kPB * NK;         // [2][Q] dt of the next head (parity)
+  float* vec = dtr + 2 * Q;           // [2][2][Q] dt, cs by head parity
+  float* rowR = vec + 4 * Q;          // [kCW][Q] R = G o T, by columns
+  float* colR = rowR + kCW * Q;       // [4][Q] by row tile
+  float* dywp = colR + 4 * Q;         // [kCW][Q] C_i . Z_i, by columns
+  float* uvp = dywp + kCW * Q;        // [kCW][Q] B_j . Z'_j
+  float* xdup = uvp + kCW * Q;        // [kCW][Q] x_j . du_j
+  float* dhp = xdup + kCW * Q;        // [kGW] <D_c, h_c> by warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3, mat = lane >> 3, r8 = lane & 7;
+  const int m = warp & 3, hq = warp >> 2, i0 = 16 * m;
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z, c0 = c * Q;
+  const int q = min(Q, a.S - c0);
+  const int h0 = grp * a.hg, h1 = min(h0 + a.hg, a.H);
+  const bool has_h = c > 0;                 // h_0 = 0
+  const long long PN = (long long)P * N;
+  const int nb = (P + kPB - 1) / kPB, items = (h1 - h0) * nb;
+
+  const T* xg = (const T*)a.x + b * a.sxb + (long long)c0 * a.sxs;
+  const T* yg = (const T*)g.dy + b * g.sdyb + (long long)c0 * g.sdys;
+  const float* hsrc =
+      has_h ? a.states + ((long long)b * a.nc + c - 1) * a.H * PN : nullptr;
+  const float* dsrc = g.gs + ((long long)b * a.nc + c) * a.H * PN;
+  // dt of head h (0 past q) into dtr[(h - h0) % 2]
+  auto stage_dt = [&](int h) {
+    const float* dp = (const float*)a.dt + b * a.sdb + h * a.sdh +
+                      (long long)c0 * a.sds;
+    const int j = threadIdx.x;
+    if (j < Q)
+      cp_async4(dtr + ((h - h0) & 1) * Q + j, j < q ? dp + j * a.sds : dp,
+                j < q);
+  };
+  // item k: head h0 + k / nb, rows (k % nb) * kPB of P: its dy and x (into
+  // the buffers of parity k), then its f32 h_c and D_c (and, with a head's
+  // first item, dt of the next head), a cp.async group each
+  auto stage_dyx = [&](int k) {
+    const int h = h0 + k / nb, p0 = (k % nb) * kPB, pw = min(kPB, P - p0);
+    stage_rows(Ys + (k & 1) * Q * XP, XP, yg + h * g.sdyh + p0, g.sdys, q, Q,
+               pw, pw, a.vec);
+    stage_rows(Xs + (k & 1) * Q * XP, XP, xg + h * a.sxh + p0, a.sxs, q, Q,
+               pw, pw, a.vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  auto stage_raw = [&](int k) {
+    const int h = h0 + k / nb, p0 = (k % nb) * kPB, pw = min(kPB, P - p0);
+    const long long o = h * PN + (long long)p0 * N;
+    if (has_h) stage_rows(Rh, NK, hsrc + o, N, pw, pw, N, NK, true);
+    stage_rows(Rd, NK, dsrc + o, N, pw, pw, N, NK, true);
+    if (k % nb == 0 && h + 1 < h1) stage_dt(h + 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  stage_rows(Cs, NP, (const T*)a.Cm + b * a.scb + (long long)c0 * a.scs,
+             a.scs, q, Q, N, NK, a.vec);
+  stage_rows(Bs, NP, (const T*)a.Bm + b * a.sbb + (long long)c0 * a.sbs,
+             a.sbs, q, Q, N, NK, a.vec);
+  stage_dt(h0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  stage_dyx(0);
+  stage_raw(0);
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  __syncthreads();                    // C, B and the first dt have landed
+
+  // G = C.B^T on this warp's tiles, in registers for all the heads
+  float G[QW / 8][4];
+#pragma unroll
+  for (int t = 0; t < QW / 8; ++t) G[t][0] = G[t][1] = G[t][2] = G[t][3] = 0.f;
+  for (int k0 = 0; k0 < NK; k0 += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, Cs + (i0 + (lane & 15)) * NP + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int tp = 0; tp < QW / 16; ++tp) {
+      if (QW * hq + 16 * tp <= i0) {  // columns at or left of the diagonal
+        uint32_t bf[4];               // B[n][j] = Bs[j][n]: as stored
+        ldsm_x4(bf, Bs + (QW * hq + 16 * tp + r8 + (mat >> 1) * 8) * NP +
+                        k0 + (mat & 1) * 8);
+        mma16816(G[2 * tp], af, bf[0], bf[1]);
+        mma16816(G[2 * tp + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  float dBa[NW / 8][4], dCa[NW / 8][4];  // dB, dC: rows i0, columns NW hq
+#pragma unroll
+  for (int t = 0; t < NW / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dBa[t][e] = dCa[t][e] = 0.f;
+  const int ilo = i0 + g4, ihi = ilo + 8;    // this thread's two rows
+
+  // Z = A.S^T over a block of P (A = x and S = D_c, or A = dy and S =
+  // h_c, as hi + lo) on this warp's [16, NW] of [Q, N]: acc_r += w(r) Z_r,
+  // and the V_r . Z_r partials (V = B or C) into red's slot hq
+  auto zterm = [&](const T* A, const T* Sh, const T* Sl, const T* V,
+                   float* red, float (&acc)[NW / 8][4], int pw, int blk,
+                   auto w) {
+    float z[NW / 8][4];
+#pragma unroll
+    for (int t = 0; t < NW / 8; ++t)
+      z[t][0] = z[t][1] = z[t][2] = z[t][3] = 0.f;
+    for (int kt = 0; kt < pw / 16; ++kt) {
+      uint32_t af[4];
+      ldsm_x4(af, A + (i0 + (lane & 15)) * XP + kt * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NW / 16; ++np) {
+        const int n = NW * hq + 16 * np;
+        if (n < NK) {
+          uint32_t bh[4], bl[4];      // B[p][n] = S[p][n]: transposed
+          const int o = (kt * 16 + r8 + (mat & 1) * 8) * NP + n +
+                        (mat >> 1) * 8;
+          ldsm_x4_t(bh, Sh + o);
+          ldsm_x4_t(bl, Sl + o);
+          mma16816(z[2 * np], af, bh[0], bh[1]);
+          mma16816(z[2 * np + 1], af, bh[2], bh[3]);
+          mma16816(z[2 * np], af, bl[0], bl[1]);
+          mma16816(z[2 * np + 1], af, bl[2], bl[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = hr ? ihi : ilo;
+      const float wj = w(j);
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < NW / 8; ++t) {
+        const int n = NW * hq + 8 * t + 2 * t4;
+        if (n < NK) {
+          const float z0 = z[t][2 * hr], z1 = z[t][2 * hr + 1];
+          const float2 vv = ld_bf16x2(V + j * NP + n);
+          s += vv.x * z0 + vv.y * z1;
+          acc[t][2 * hr] += wj * z0;
+          acc[t][2 * hr + 1] += wj * z1;
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (t4 == 0) red[hq * Q + j] = (blk ? red[hq * Q + j] : 0.f) + s;
+    }
+  };
+
+  int k = 0;                          // the item
+  for (int h = h0; h < h1; ++h) {
+    float* dts = vec + ((h - h0) & 1) * 2 * Q;            // [Q]
+    float* cs = dts + Q;                                  // [Q]
+    if (warp == 0) {                  // beside the last head's tails
+      const float* dp = dtr + ((h - h0) & 1) * Q;
+      const float d[2] = {dp[2 * lane], dp[2 * lane + 1]};
+      dts[2 * lane] = d[0];
+      dts[2 * lane + 1] = d[1];
+      cumsum_core(d, a.A[h], cs);
+    }
+    __syncthreads();                  // cs; the last head's T is read
+    const float csl = cs[ilo], csh = cs[ihi], cl = cs[Q - 1];
+    // exp(cs_i) and exp(cs_last - cs_j), where they are needed
+    auto ein = [&](int i) { return expf(cs[i]); };
+    auto eout = [&](int j) { return expf(cl - cs[j]); };
+    // M = G o L (L_ij = exp(cs_i - cs_j), j <= i) as hi + lo
+#pragma unroll
+    for (int t = 0; t < QW / 8; ++t) {
+      const int j = QW * hq + 8 * t + 2 * t4;
+      const float v0 = j <= ilo ? G[t][0] * expf(csl - cs[j]) : 0.f;
+      const float v1 = j + 1 <= ilo ? G[t][1] * expf(csl - cs[j + 1]) : 0.f;
+      const float v2 = j <= ihi ? G[t][2] * expf(csh - cs[j]) : 0.f;
+      const float v3 = j + 1 <= ihi ? G[t][3] * expf(csh - cs[j + 1]) : 0.f;
+      uint32_t hi, lo;
+      split_bf16(v0, v1, hi, lo);
+      st_u32(Mh + ilo * XP + j, hi);
+      st_u32(Ml + ilo * XP + j, lo);
+      split_bf16(v2, v3, hi, lo);
+      st_u32(Mh + ihi * XP + j, hi);
+      st_u32(Ml + ihi * XP + j, lo);
+    }
+    float S[QW / 8][4];               // S = dy.x^T over the blocks of P
+#pragma unroll
+    for (int t = 0; t < QW / 8; ++t) S[t][0] = S[t][1] = S[t][2] = S[t][3] = 0.f;
+
+    for (int blk = 0; blk < nb; ++blk, ++k) {
+      const int p0 = blk * kPB, pw = min(kPB, P - p0);
+      const T* Yc = Ys + (k & 1) * Q * XP;
+      const T* Xc = Xs + (k & 1) * Q * XP;
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();                // the item's tiles have landed; M is
+                                      // written; the last item is done
+      if (k + 1 < items) stage_dyx(k + 1);  // in flight from here on
+      {                               // h_c, D_c -> hi + lo; <D_c, h_c>
+        float part = 0.f;
+        const int n4 = NK / 4;
+#pragma unroll 4
+        for (int o = threadIdx.x; o < pw * n4; o += kTBG) {
+          const int p = o / n4, n = (o - p * n4) * 4;
+          const float4 d = *reinterpret_cast<const float4*>(Rd + p * NK + n);
+          uint32_t hi0, hi1, lo0, lo1;
+          split_bf16(d.x, d.y, hi0, lo0);
+          split_bf16(d.z, d.w, hi1, lo1);
+          *reinterpret_cast<uint2*>(Dh + p * NP + n) = make_uint2(hi0, hi1);
+          *reinterpret_cast<uint2*>(Dl + p * NP + n) = make_uint2(lo0, lo1);
+          if (has_h) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(Rh + p * NK + n);
+            split_bf16(v.x, v.y, hi0, lo0);
+            split_bf16(v.z, v.w, hi1, lo1);
+            *reinterpret_cast<uint2*>(Hh + p * NP + n) = make_uint2(hi0, hi1);
+            *reinterpret_cast<uint2*>(Hl + p * NP + n) = make_uint2(lo0, lo1);
+            part = fmaf(d.x, v.x, part);
+            part = fmaf(d.y, v.y, part);
+            part = fmaf(d.z, v.z, part);
+            part = fmaf(d.w, v.w, part);
+          }
+        }
+        part = warp_sum(part);
+        if (lane == 0) dhp[warp] = (blk ? dhp[warp] : 0.f) + part;
+      }
+      __syncthreads();                // the split tiles are complete
+      if (k + 1 < items) stage_raw(k + 1);  // in flight while this computes
+
+      // S += dy.x^T
+      for (int kt = 0; kt < pw / 16; ++kt) {
+        uint32_t af[4];
+        ldsm_x4(af, Yc + (i0 + (lane & 15)) * XP + kt * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int tp = 0; tp < QW / 16; ++tp) {
+          if (QW * hq + 16 * tp <= i0) {
+            uint32_t bf[4];           // B[p][j] = x[j][p]: as stored
+            ldsm_x4(bf, Xc + (QW * hq + 16 * tp + r8 + (mat >> 1) * 8) * XP +
+                            kt * 16 + (mat & 1) * 8);
+            mma16816(S[2 * tp], af, bf[0], bf[1]);
+            mma16816(S[2 * tp + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+
+      // du_j = exp(cs_last - cs_j) B_j.D_c^T + sum_(i >= j) M_ij dy_i on
+      // columns PW hq of the block; dx = dt du and the x_j . du_j partials
+      {
+        float du[PW / 8][4];
+#pragma unroll
+        for (int t = 0; t < PW / 8; ++t)
+          du[t][0] = du[t][1] = du[t][2] = du[t][3] = 0.f;
+        for (int k0 = 0; k0 < NK; k0 += 16) {
+          uint32_t af[4];
+          ldsm_x4(af, Bs + (i0 + (lane & 15)) * NP + k0 + (lane >> 4) * 8);
+#pragma unroll
+          for (int tp = 0; tp < PW / 16; ++tp) {
+            const int pc = PW * hq + 16 * tp;
+            if (pc < pw) {
+              uint32_t bh[4], bl[4];  // B[n][p] = D[p][n]: as stored
+              const int o = (pc + r8 + (mat >> 1) * 8) * NP + k0 +
+                            (mat & 1) * 8;
+              ldsm_x4(bh, Dh + o);
+              ldsm_x4(bl, Dl + o);
+              mma16816(du[2 * tp], af, bh[0], bh[1]);
+              mma16816(du[2 * tp + 1], af, bh[2], bh[3]);
+              mma16816(du[2 * tp], af, bl[0], bl[1]);
+              mma16816(du[2 * tp + 1], af, bl[2], bl[3]);
+            }
+          }
+        }
+        const float el = eout(ilo), eh = eout(ihi);
+#pragma unroll
+        for (int t = 0; t < PW / 8; ++t) {
+          du[t][0] *= el; du[t][1] *= el;
+          du[t][2] *= eh; du[t][3] *= eh;
+        }
+        for (int kt = m; kt < KT; ++kt) {
+          uint32_t ah[4], al[4];      // A[j][i] = M[i][j]: transposed
+          const int o = (kt * 16 + r8 + (mat >> 1) * 8) * XP + i0 +
+                        (mat & 1) * 8;
+          ldsm_x4_t(ah, Mh + o);
+          ldsm_x4_t(al, Ml + o);
+#pragma unroll
+          for (int tp = 0; tp < PW / 16; ++tp) {
+            const int pc = PW * hq + 16 * tp;
+            if (pc < pw) {
+              uint32_t bf[4];         // B[i][p] = dy[i][p]: transposed
+              ldsm_x4_t(bf, Yc + (kt * 16 + r8 + (mat & 1) * 8) * XP + pc +
+                                (mat >> 1) * 8);
+              mma16816(du[2 * tp], ah, bf[0], bf[1]);
+              mma16816(du[2 * tp + 1], ah, bf[2], bf[3]);
+              mma16816(du[2 * tp], al, bf[0], bf[1]);
+              mma16816(du[2 * tp + 1], al, bf[2], bf[3]);
+            }
+          }
+        }
+        T* dxb = (T*)g.dx + (((long long)b * a.S + c0) * a.H + h) * P + p0;
+        const long long dxs = (long long)a.H * P;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int j = hr ? ihi : ilo;
+          const float dj = dts[j];
+          float s = 0.f;
+#pragma unroll
+          for (int t = 0; t < PW / 8; ++t) {
+            const int p = PW * hq + 8 * t + 2 * t4;
+            if (p < pw) {
+              const float v0 = du[t][2 * hr], v1 = du[t][2 * hr + 1];
+              if (j < q) st_u32(dxb + j * dxs + p, pack_bf16(dj * v0, dj * v1));
+              const float2 xv = ld_bf16x2(Xc + j * XP + p);
+              s += xv.x * v0 + xv.y * v1;
+            }
+          }
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          if (t4 == 0) xdup[hq * Q + j] = (blk ? xdup[hq * Q + j] : 0.f) + s;
+        }
+      }
+
+      // Z'_j = x_j^T D_c: dB_j += exp(cs_last - cs_j) dt_j Z'_j and the
+      // B_j . Z'_j partials; Z_i = dy_i^T h_c: dC_i += exp(cs_i) Z_i and the
+      // C_i . Z_i partials
+      zterm(Xc, Dh, Dl, Bs, uvp, dBa, pw, blk,
+            [&](int j) { return eout(j) * dts[j]; });
+      if (has_h)
+        zterm(Yc, Hh, Hl, Cs, dywp, dCa, pw, blk,
+              [&](int j) { return ein(j); });
+    }
+    __syncthreads();                  // M is read; the partials are written
+
+    // T = L o (dy.u^T) (T_ij = L_ij dt_j S_ij) over M as hi + lo; R = G o T
+    // (f32): row partials by column group, column partials by row tile
+    {
+      float R[QW / 8][4];
+#pragma unroll
+      for (int t = 0; t < QW / 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ilo : ihi;
+          const int j = QW * hq + 8 * t + 2 * t4 + (e & 1);
+          const float v =
+              j <= i ? expf(cs[i] - cs[j]) * dts[j] * S[t][e] : 0.f;
+          S[t][e] = v;
+          R[t][e] = G[t][e] * v;
+        }
+        const int j = QW * hq + 8 * t + 2 * t4;
+        uint32_t hi, lo;
+        split_bf16(S[t][0], S[t][1], hi, lo);
+        st_u32(Mh + ilo * XP + j, hi);
+        st_u32(Ml + ilo * XP + j, lo);
+        split_bf16(S[t][2], S[t][3], hi, lo);
+        st_u32(Mh + ihi * XP + j, hi);
+        st_u32(Ml + ihi * XP + j, lo);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < QW / 8; ++t) s += R[t][2 * hr] + R[t][2 * hr + 1];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (t4 == 0) rowR[hq * Q + (hr ? ihi : ilo)] = s;
+      }
+#pragma unroll
+      for (int t = 0; t < QW / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = R[t][e] + R[t][e + 2];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (g4 == 0) colR[m * Q + QW * hq + 8 * t + 2 * t4 + e] = s;
+        }
+    }
+    __syncthreads();                  // T is complete
+
+    // the intra-chunk terms: dC_i += sum_(j <= i) T_ij B_j, dB_j +=
+    // sum_(i >= j) T_ij C_i
+    for (int kt = 0; kt <= m; ++kt) {
+      uint32_t ah[4], al[4];          // A[i][j] = T[i][j]: as stored
+      const int o = (i0 + (lane & 15)) * XP + kt * 16 + (lane >> 4) * 8;
+      ldsm_x4(ah, Mh + o);
+      ldsm_x4(al, Ml + o);
+#pragma unroll
+      for (int np = 0; np < NW / 16; ++np) {
+        const int n = NW * hq + 16 * np;
+        if (n < NK) {
+          uint32_t bf[4];             // B[j][n] = Bs[j][n]: transposed
+          ldsm_x4_t(bf, Bs + (kt * 16 + r8 + (mat & 1) * 8) * NP + n +
+                            (mat >> 1) * 8);
+          mma16816(dCa[2 * np], ah, bf[0], bf[1]);
+          mma16816(dCa[2 * np + 1], ah, bf[2], bf[3]);
+          mma16816(dCa[2 * np], al, bf[0], bf[1]);
+          mma16816(dCa[2 * np + 1], al, bf[2], bf[3]);
+        }
+      }
+    }
+    for (int kt = m; kt < KT; ++kt) {
+      uint32_t ah[4], al[4];          // A[j][i] = T[i][j]: transposed
+      const int o = (kt * 16 + r8 + (mat >> 1) * 8) * XP + i0 + (mat & 1) * 8;
+      ldsm_x4_t(ah, Mh + o);
+      ldsm_x4_t(al, Ml + o);
+#pragma unroll
+      for (int np = 0; np < NW / 16; ++np) {
+        const int n = NW * hq + 16 * np;
+        if (n < NK) {
+          uint32_t bf[4];             // B[i][n] = Cs[i][n]: transposed
+          ldsm_x4_t(bf, Cs + (kt * 16 + r8 + (mat & 1) * 8) * NP + n +
+                            (mat >> 1) * 8);
+          mma16816(dBa[2 * np], ah, bf[0], bf[1]);
+          mma16816(dBa[2 * np + 1], ah, bf[2], bf[3]);
+          mma16816(dBa[2 * np], al, bf[0], bf[1]);
+          mma16816(dBa[2 * np + 1], al, bf[2], bf[3]);
+        }
+      }
+    }
+
+    if (warp == kGW - 1) {
+      // dcs_k = rowsum R - colsum R + exp(cs_k) dy_k . w_k - exp(cs_last -
+      // cs_k) u_k . v_k; da_k = the last token's terms + sum_(i >= k) dcs_i
+      // (a warp scan, two tokens a lane); ddt = x . du + A da; dA's partial
+      float dc[2], euv = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * lane + u;
+        float su = 0.f, sr = 0.f, sw = 0.f;
+#pragma unroll
+        for (int w = 0; w < kCW; ++w) {
+          su += uvp[w * Q + j];
+          sr += rowR[w * Q + j];
+          sw += dywp[w * Q + j];
+        }
+        const float uv = dts[j] * su;
+        float v = sr -
+                  (((colR[j] + colR[Q + j]) + colR[2 * Q + j]) +
+                   colR[3 * Q + j]) -
+                  eout(j) * uv;
+        if (has_h) v += ein(j) * sw;
+        dc[u] = v;
+        euv = fmaf(eout(j), uv, euv);
+      }
+      euv = warp_sum(euv);
+      float dh = 0.f;
+      if (has_h)
+        for (int w = 0; w < kGW; ++w) dh += dhp[w];
+      const float run = expf(cl) * dh + euv;
+      float suf = dc[0] + dc[1];      // sum over this lane's tokens and on
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane + o < 32) suf += t;
+      }
+      float after = __shfl_down_sync(0xffffffffu, suf, 1);
+      if (lane == 31) after = 0.f;
+      const float da1 = run + (after + dc[1]);
+      const float da0 = run + ((after + dc[1]) + dc[0]);
+      const int j = 2 * lane;
+      const float dap = warp_sum(fmaf(dts[j], da0, dts[j + 1] * da1));
+      if (lane == 0) g.dAp[((long long)b * a.nc + c) * a.H + h] = dap;
+      const float Ah = a.A[h];
+      float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kCW; ++w) {
+        x0 += xdup[w * Q + j];
+        x1 += xdup[w * Q + j + 1];
+      }
+      TD* dd = (TD*)g.ddt + ((long long)b * a.S + c0) * a.H + h;
+      if (j < q) store(dd + (long long)j * a.H, x0 + Ah * da0);
+      if (j + 1 < q) store(dd + (long long)(j + 1) * a.H, x1 + Ah * da1);
+    }
+  }
+
+  // dB and dC: the registers through shared memory (over the split tiles,
+  // unread since the last head's products) into the CTA's partials by
+  // 16-byte stores, once
+  __syncthreads();
+  const int SP = NK + 4;
+  float* Sb = (float*)Hh;                                 // [Q][SP]
+  float* Sc = Sb + Q * SP;                                // [Q][SP]
+#pragma unroll
+  for (int t = 0; t < NW / 8; ++t) {
+    const int n = NW * hq + 8 * t + 2 * t4;
+    if (n < NK) {
+      *reinterpret_cast<float2*>(Sb + ilo * SP + n) = make_float2(dBa[t][0], dBa[t][1]);
+      *reinterpret_cast<float2*>(Sb + ihi * SP + n) = make_float2(dBa[t][2], dBa[t][3]);
+      *reinterpret_cast<float2*>(Sc + ilo * SP + n) = make_float2(dCa[t][0], dCa[t][1]);
+      *reinterpret_cast<float2*>(Sc + ihi * SP + n) = make_float2(dCa[t][2], dCa[t][3]);
+    }
+  }
+  __syncthreads();
+  const long long part =
+      (((long long)b * a.nc + c) * gridDim.y + grp) * Q * N;
+  const int n4 = N / 4;
+  for (int o = threadIdx.x; o < Q * n4; o += kTBG) {
+    const int j = o / n4, n = (o - j * n4) * 4;
+    *reinterpret_cast<float4*>(g.dBp + part + j * N + n) =
+        *reinterpret_cast<const float4*>(Sb + j * SP + n);
+    *reinterpret_cast<float4*>(g.dCp + part + j * N + n) =
+        *reinterpret_cast<const float4*>(Sc + j * SP + n);
+  }
+}
+
+size_t smem_grad_bf16(int N) {
+  const int NP = kpad(N) + 8;
+  return sizeof(__nv_bfloat16) * ((size_t)2 * kQ * NP + 4 * kPB * NP +
+                                  6 * kQ * kXP) +
+         sizeof(float) * ((size_t)2 * kPB * kpad(N) + (10 + 4 * kCW) * kQ +
+                          kGW);
 }
 
 // dB, dC: the groups' partials summed in order and cast (one CTA per
@@ -1366,21 +1816,39 @@ cudaError_t launch_bwd(const Args& a, const Grad& g, cudaStream_t st) {
   ssd_rpass_kernel<<<pgrid, 128, 0, st>>>(a, g);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const dim3 grid(a.nc, groups, a.B);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (a.N % 32 == 0 && g.pt % 32 == 0)
-      e = run(ssd_grad_kernel<T, TD, true>, grid, kTB,
-              smem_grad(a.N, g.pt, 4), st, a, g);
-    else
-      e = run(ssd_grad_kernel<T, TD, false>, grid, kTB,
-              smem_grad(a.N, g.pt, 1), st, a, g);
-  } else {
-    e = run(ssd_grad_kernel<T, TD, false>, grid, kTB,
-            smem_grad(a.N, g.pt, 1), st, a, g);
-  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    e = run(ssd_grad_bf16<TD>, grid, kTBG, smem_grad_bf16(a.N), st, a, g);
+  else
+    e = run(ssd_grad_f32<TD>, grid, kTB, smem_grad_f32(a.N, g.pt), st, a, g);
   if (e != cudaSuccess) return e;
   ssd_bwd_finish<T><<<(unsigned)((long long)a.B * a.S + a.H), 128, 0, st>>>(
       a, g);
   return cudaGetLastError();
+}
+
+// rows of P a tile of the f32 gradient pass
+int grad_pt(int P) { return P % 64 == 0 ? 64 : P % 32 == 0 ? 32 : 16; }
+
+// out = {dynamic shared memory a CTA, CTAs a SM, registers a thread,
+// threads a CTA, local (spilled) bytes a thread} of kern on the current
+// device
+template <typename K>
+cudaError_t occupancy(K kern, int threads, size_t smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return e;
+  out[0] = (int)smem;
+  out[1] = ctas;
+  out[2] = fa.numRegs;
+  out[3] = threads;
+  out[4] = (int)fa.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1482,11 +1950,31 @@ extern "C" int repro_ssd_scan_bwd(
   g.gs = (float*)gs; g.gdecay = (float*)gdecay;
   g.dBp = (float*)dBp; g.dCp = (float*)dCp; g.dAp = (float*)dAp;
   g.sdyb = sdyb; g.sdys = sdys; g.sdyh = sdyh;
-  g.pt = P % 64 == 0 ? 64 : P % 32 == 0 ? 32 : 16;
+  g.pt = grad_pt(P);
   if ((a.nc > 1 && (!states || !decay || !gdecay)) || !gs || !dBp || !dCp ||
       !dAp)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(x_dtype == 0 ? launch_bwd<float>(a, g, s)
                              : launch_bwd<__nv_bfloat16>(a, g, s));
+}
+
+
+// C entry point (bound with ctypes): what the gradient pass of
+// repro_ssd_scan_bwd asks of the current device at N and P for x_dtype
+// (0 = float32, 1 = bfloat16), into out[5]: dynamic shared memory a CTA
+// (bytes), CTAs a SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers a thread, threads a CTA and local (spilled) bytes a thread.
+// Returns the first CUDA error, 0 on success.
+extern "C" int repro_ssd_grad_occupancy(int N, int P, int x_dtype,
+                                        int* out) {
+  if (N <= 0 || N % 4 || N > kMaxNB || P <= 0 || P % 16 || !out)
+    return (int)cudaErrorInvalidValue;
+  if (x_dtype == 1)
+    return (int)occupancy(ssd_grad_bf16<float>, kTBG, smem_grad_bf16(N),
+                          out);
+  if (x_dtype == 0)
+    return (int)occupancy(ssd_grad_f32<float>, kTB,
+                          smem_grad_f32(N, grad_pt(P)), out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -37,12 +37,18 @@ reference differentiates its chunked math with XLA.  One call runs the
 forward's chunk and state passes again (the f32 states entering each
 chunk; the forward saves nothing but its inputs), the gradient's chunk
 pass (the same kernels on dy and C), a reverse state pass, the gradient
-pass (one CTA per (b, chunk, group of heads); its products tf32
-``mma.sync`` for bf16 when N and P are multiples of 32, exact f32 FMAs
-otherwise) and a last pass that sums the per-CTA partials of dA, dB and
-dC in a fixed order, and counts as one launch in
-``ssd_scan_bwd.launches``.
-Its scratch is one ``torch.empty`` (:func:`bwd_scratch`).
+pass and a last pass that sums the per-CTA partials of dA, dB and dC in
+a fixed order, and counts as one launch in ``ssd_scan_bwd.launches``.
+The gradient pass runs one CTA of 8 warps per (b, chunk, group of heads)
+and, for bf16, every product on the tensor cores (``mma.sync``
+m16n8k16 from ``ldmatrix`` fragments; h_c, D_c, M and T as bf16 hi + lo,
+the rounding points of ``ref.ref_ssd_bwd(..., round_bf16=True)``), the
+next head's tiles in flight by ``cp.async`` while one computes, and dB
+and dC summed over the CTA's heads in registers, written once; it takes
+one CTA a SM (:func:`grad_occupancy` reads what it asks of the card).
+For f32 it runs exact f32 FMAs.  What bounds the call is its f32 state
+scratch (:func:`bwd_scratch`, one ``torch.empty``), which the other
+passes write and read several times.
 """
 
 from __future__ import annotations
@@ -85,6 +91,30 @@ def _bwd_entry():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _occupancy_entry():
+    from repro_torch.kernels.build import library
+    fn = library(NAME).repro_ssd_grad_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def grad_occupancy(N: int, P: int, dtype) -> dict:
+    """What the backward's gradient pass asks of the current CUDA device
+    at N and P for x of ``dtype``: dynamic shared memory a CTA, CTAs a SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spilled) bytes a thread, threads a CTA.  Builds the kernels;
+    needs a CUDA device."""
+    out = (ctypes.c_int * 5)()
+    err = _occupancy_entry()(N, P, _DTYPES[dtype], ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ssd_grad occupancy query failed: CUDA error "
+                           f"{err}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "registers", "threads",
+                     "local_bytes"), out))
 
 
 def plan(B: int, S: int, H: int):
@@ -250,9 +280,10 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh_final=None):
     recomputed, then the gradient's chunk, reverse state and gradient
     passes and the last sums; one launch in ``ssd_scan_bwd.launches``) or
     raises; a CPU tensor runs ``ref.ref_ssd_bwd``, the same decomposition
-    in plain torch.  Sums across CTAs (dA over tokens, dB and dC over head
-    groups) go through scratch in a fixed order: two calls give equal
-    bits."""
+    in plain torch (for bf16 the kernels round as ``ref_ssd_bwd(...,
+    round_bf16=True)`` does).  Sums across CTAs (dA over tokens, dB and dC
+    over head groups) go through scratch in a fixed order, with no
+    atomics: two calls give equal bits."""
     B, S, H, P, N = _check(x, dt, A, Bm, Cm)
     if tuple(dy.shape) != tuple(x.shape) or (
             dh_final is not None and tuple(dh_final.shape) != (B, H, P, N)):

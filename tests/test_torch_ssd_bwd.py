@@ -6,12 +6,14 @@ gradient pass) against ``jax.grad`` of the reference's
 ``ssd_chunked_plain``, for all five inputs, f32, within 1e-4 of each
 gradient's largest value.  ``kernels.ops.ssd_scan_bwd`` on CPU tensors
 runs ``ref_ssd_bwd``; its refusals, its scratch plan and ``SSDScan``'s
-backward are held here too.  The CUDA kernel runs only on the card: the
-``cuda``-marked tests below hold it against both plain versions there
-(relative to the largest value: f32 1e-4; bf16 1.5e-2 against
-``ref_ssd_bwd``, where only the kernel's tf32 operands and bf16 outputs
-differ, and 5e-2 against plain autograd; two calls equal to the bit)
-and skip elsewhere.
+backward are held here too.  ``ref_ssd_bwd(..., round_bf16=True)``, the
+bf16 kernels' rounding points (operands computed in f32 entering as bf16
+hi + lo), is held to ``jax.grad`` within 5e-5.  The CUDA kernel runs only
+on the card: the ``cuda``-marked tests below hold it against both plain
+versions there (relative to the largest value: f32 1e-4; bf16 1.5e-2
+against ``ref_ssd_bwd`` and 5e-2 against plain autograd, and 5e-3 against
+the emulation, where only the bf16 outputs' rounding and the order of
+f32 sums differ; two calls equal to the bit) and skip elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ssd_bwd.py
 """
@@ -29,6 +31,12 @@ from repro_torch.models import ssm as TS  # noqa: E402
 TOL_GRAD = 1e-4                       # of each gradient's largest value
 TOL_CARD = {"float32": 1e-4, "bfloat16": 5e-2}
 TOL_CARD_REF = {"float32": 1e-4, "bfloat16": 1.5e-2}
+# the bf16 emulation against jax.grad: hi + lo keeps ~16 significant bits
+# of each operand computed in f32 (2^-16 = 1.5e-5 of it)
+TOL_EMU = 5e-5
+# the bf16 kernel against the emulation: half a bf16 step of the largest
+# value (2^-8) from the outputs' rounding, plus the order of f32 sums
+TOL_CARD_EMU = 5e-3
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
 # (B, S, H, P, N, chunk of the reference): S a multiple of the chunk, a
 # ragged S, S below the chunk (one chunk), S = 1, other H/P/N, and the
@@ -43,6 +51,12 @@ CASES = [
     (1, 200, 2, 64, 128, 64),
     (2, 96, 3, 16, 8, 32),
 ]
+# the launcher's widths (P 64, N 128) over a few chunks of 64
+LAUNCH_LIKE = (1, 256, 4, 64, 128, 64)
+# N the bf16 kernel zero-pads to a multiple of 16 (8, 20, 4), and P in one
+# ragged block of 48 and in blocks of 64 + 16
+PADDED = [(2, 96, 3, 16, 8, 32), (1, 100, 2, 48, 20, 64),
+          (1, 70, 2, 80, 4, 64)]
 
 
 @pytest.fixture(scope="module")
@@ -124,6 +138,49 @@ def test_ref_ssd_bwd_matches_jax_grad(case, final, kchunk, jax_ref):
                       _t(dh) if final else None, chunk=kchunk)
     assert [g.dtype for g in got] == [torch.float32] * 5
     _within(got, want, TOL_GRAD, f"{case} final={final} chunk={kchunk}")
+
+
+def _bf16_exact(a):
+    """a rounded to bf16 and back: the values the bf16 kernel reads."""
+    return np.asarray(torch.from_numpy(a).bfloat16().float())
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["y", "y+h_final"])
+@pytest.mark.parametrize("case", SSD_SWEEP + [LAUNCH_LIKE])
+def test_ref_ssd_bwd_bf16_emulation_matches_jax_grad(case, final, jax_ref):
+    """ref_ssd_bwd with the bf16 kernels' rounding points (round_bf16) at
+    the kernel's chunk against jax.grad of the reference's ssd_chunked, on
+    inputs exact in bf16 (x, B, C and dy as the kernel reads them), every
+    input, within TOL_EMU of each gradient's largest value; no NaN."""
+    jax, jnp = jax_ref
+    from repro.models import ssm as JS
+    args, dy, dh = _inputs(case, seed=13)
+    args = [a if i in (1, 2) else _bf16_exact(a) for i, a in enumerate(args)]
+    dy = _bf16_exact(dy)
+
+    def j_loss(*xs):
+        out = JS.ssd_chunked(*xs, case[-1], return_final=final)
+        if final:
+            return jnp.sum(out[0] * dy) + jnp.sum(out[1] * dh)
+        return jnp.sum(out * dy)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in args))
+    got = ref_ssd_bwd(*(_t(a) for a in args), _t(dy),
+                      _t(dh) if final else None, round_bf16=True)
+    assert not any(bool(torch.isnan(g).any()) for g in got)
+    _within(got, want, TOL_EMU, f"{case} final={final} round_bf16")
+
+
+def test_ref_ssd_bwd_round_bf16_rounds():
+    """At the launcher's widths the emulation differs from the f32 passes
+    (it rounds), by no more than the split's ~2^-16 allows."""
+    args, dy, dh = _inputs(LAUNCH_LIKE, seed=14)
+    t = [_t(a) for a in args]
+    exact = ref_ssd_bwd(*t, _t(dy), _t(dh))
+    emu = ref_ssd_bwd(*t, _t(dy), _t(dh), round_bf16=True)
+    assert any(not torch.equal(a, b) for a, b in zip(exact, emu))
+    _within(emu, exact, TOL_EMU, "round_bf16 vs f32")
 
 
 @pytest.mark.parametrize("final", [False, True], ids=["y", "y+h_final"])
@@ -240,11 +297,12 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_ssd_scan_bwd_matches_plain_versions(dtype, card):
-    """Every SSD_SWEEP case, with and without dh_final: the kernel's
-    gradients against ref_ssd_bwd and autograd of ssd_chunked_plain on
-    the same inputs, and a second call equal to the bit."""
+    """Every SSD_SWEEP case and the zero-padded shapes (PADDED), with and
+    without dh_final: the kernel's gradients against ref_ssd_bwd and
+    autograd of ssd_chunked_plain on the same inputs (bf16 also against
+    the emulation of its rounding), and a second call equal to the bit."""
     dt_ = getattr(torch, dtype)
-    for case in SSD_SWEEP:
+    for case in SSD_SWEEP + PADDED:
         for final in (False, True):
             args, dy, dh = _inputs(case, seed=11)
             t = [_t(a, dt_ if i in (0, 3, 4) else torch.float32, card)
@@ -261,6 +319,10 @@ def test_cuda_ssd_scan_bwd_matches_plain_versions(dtype, card):
                     f"{case} ref")
             _within(got, _plain_grads(t, gy, gh, case[-1]), TOL_CARD[dtype],
                     f"{case} plain")
+            if dtype == "bfloat16":
+                _within(got, ref_ssd_bwd(
+                    *(a.float() for a in t), gy.float(), gh,
+                    round_bf16=True), TOL_CARD_EMU, f"{case} emulation")
 
 
 @pytest.mark.cuda
