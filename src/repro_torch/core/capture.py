@@ -54,6 +54,11 @@ is a tree of tensors.
   work queued on its stream, whichever thread queues it), in
   ``thread_local`` error mode, so the Python thread may stage feeds onto
   the card meanwhile.  Replays run on the caller's current stream.
+* **Spans.**  With a span recorder on the context's event stream (its
+  engine's), each replay records ``capture.copy_in``, ``capture.replay``,
+  ``capture.copy_back`` and ``capture.copy_out``, each timed on the card
+  as well (``device=True``), and each capture or recapture
+  ``capture.record``.
 * **Destroying graphs.**  Destroying a CUDA graph is not permitted on a
   thread that is capturing, and Python's cyclic collector may free a
   closed engine's graphs on any thread, in the middle of a capture.  So
@@ -77,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.events import EventStream
 from repro_torch.core.pytree import tree_flatten, tree_unflatten
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.build import recording_launches
@@ -127,10 +133,12 @@ class CaptureContext:
     ``chip_smoke.py`` reads (graphs captured, replays, recaptures,
     warm-ups, functions compiled eager because they hold an op that
     cannot be captured, and the bytes copied in and out around
-    replays)."""
+    replays).  ``events`` is the stream its spans go to."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 events: Optional[EventStream] = None):
         self.device = device
+        self.events = events if events is not None else EventStream()
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = _side_stream(device)
         self.stats: Dict[str, int] = dict(
@@ -157,10 +165,11 @@ class CaptureContext:
             _bury()
 
 
-def context_for(device: torch.device) -> Optional[CaptureContext]:
+def context_for(device: torch.device,
+                events: EventStream) -> Optional[CaptureContext]:
     """An engine's CaptureContext on a CUDA card; None on the CPU, where
     segments and chains stay eager."""
-    return CaptureContext(device) if device.type == "cuda" else None
+    return CaptureContext(device, events) if device.type == "cuda" else None
 
 
 def release(ctx: Optional[CaptureContext]) -> None:
@@ -256,6 +265,10 @@ class CapturedFn:
         return out
 
     def _capture(self, args, leaves, treedef, tix, copied) -> _Graph:
+        with self.ctx.events.span("capture.record"):
+            return self._record(args, leaves, treedef, tix, copied)
+
+    def _record(self, args, leaves, treedef, tix, copied) -> _Graph:
         ctx = self.ctx
         g = _Graph()
         donated = self._donated_leaves(args)
@@ -311,20 +324,24 @@ class CapturedFn:
         return g
 
     def _replay(self, g: _Graph, leaves):
-        stats = self.ctx.stats
+        stats, span = self.ctx.stats, self.ctx.events.span
         statics, idx = g.copy_in
         if statics:
-            torch._foreach_copy_(statics, [leaves[i] for i in idx])
-        g.graph.replay()
+            with span("capture.copy_in", device=True):
+                torch._foreach_copy_(statics, [leaves[i] for i in idx])
+        with span("capture.replay", device=True):
+            g.graph.replay()
         for f, d in zip(_COUNTED, g.delta):
             if d:
                 f.launches += d
         statics, idx = g.copy_back          # donated arguments' new values
         if statics:
-            torch._foreach_copy_([leaves[i] for i in idx], statics)
+            with span("capture.copy_back", device=True):
+                torch._foreach_copy_([leaves[i] for i in idx], statics)
         fresh = [torch.empty_like(v) for v in g.copy_out]
         if fresh:
-            torch._foreach_copy_(fresh, g.copy_out)
+            with span("capture.copy_out", device=True):
+                torch._foreach_copy_(fresh, g.copy_out)
         stats["replays"] += 1
         stats["copy_in_bytes"] += g.in_bytes
         stats["copy_out_bytes"] += g.out_bytes

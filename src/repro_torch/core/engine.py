@@ -21,7 +21,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
-import time
 from typing import Callable, Optional
 
 from repro_torch.core.executor import SKELETON, TerraEngine
@@ -108,16 +107,17 @@ class TerraFunction:
         eng = self.engine
         prev = current_engine()
         set_current_engine(eng)
-        t0 = time.perf_counter()
         try:
-            out = steady.try_steady(eng, args, kwargs)
-            if out is steady.MISS:
-                eng._steady_poison = False
-                eng.start_iteration(feed_sig=feed_signature(args, kwargs))
-                out = self.fn(*args, **kwargs)
-                eng.end_iteration()
-                steady.attach_futures(eng, out)
-                steady.observe(eng, args, kwargs, out)
+            with eng.events.span("engine.call", it=eng.iter_id):
+                out = steady.try_steady(eng, args, kwargs)
+                if out is steady.MISS:
+                    eng._steady_poison = False
+                    eng.start_iteration(feed_sig=feed_signature(args,
+                                                                kwargs))
+                    out = self.fn(*args, **kwargs)
+                    eng.end_iteration()
+                    steady.attach_futures(eng, out)
+                    steady.observe(eng, args, kwargs, out)
         except BaseException:
             # leave the engine usable: cancel the half-open iteration and
             # roll back to its start snapshot before propagating
@@ -125,7 +125,6 @@ class TerraFunction:
             raise
         finally:
             set_current_engine(prev)
-        eng.events.add("py_total_time", time.perf_counter() - t0)
         return out
 
     @property

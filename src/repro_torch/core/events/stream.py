@@ -25,6 +25,11 @@ virtual clock implies (never sleep real time against a frozen clock).
 Processors may be attached/detached at any time; emission is serialized
 by a lock because the GraphRunner thread emits completion events
 concurrently with the Python thread.
+
+**Spans** (spans.py) are the third tier: ``with es.span(name, **ids)``
+times one interval of work on the profiler's epoch clock (not the
+injected one) and hands it to the recorder ``record_spans`` set; with
+none set, a span site costs one attribute check, as ``if es.on`` does.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.events.processors import CountersProcessor, Processor
+from repro_torch.core.events.spans import NO_SPAN, Span
 
 
 class EventStream:
@@ -47,6 +53,7 @@ class EventStream:
         self._procs: List[Processor] = []
         self.on = False                 # any structured processor attached
         self._lock = threading.Lock()
+        self._spans = None              # the span recorder (None: off)
 
     # ------------------------------------------------------------------
     # counter tier (always on; the hot path)
@@ -90,6 +97,22 @@ class EventStream:
         with self._lock:
             for p in self._procs:
                 p.process(event)
+
+    # ------------------------------------------------------------------
+    # span tier (only while a recorder is set)
+    # ------------------------------------------------------------------
+    def record_spans(self, recorder) -> None:
+        """Send spans to ``recorder`` (anything with ``record(span)``,
+        e.g. ``repro_torch.obs.SpanRecorder``); ``None`` turns them off."""
+        self._spans = recorder
+
+    def span(self, name: str, device: bool = False, **ids):
+        """A context timing one interval named ``<layer>.<what>``;
+        ``device=True`` also times it on the card's current stream."""
+        rec = self._spans
+        if rec is None:
+            return NO_SPAN
+        return Span(rec, name, device, ids)
 
     # ------------------------------------------------------------------
     # the injected clock

@@ -186,7 +186,7 @@ class ChainDispatcher(Dispatcher):
             for vid, ref in assigns.items():
                 buffers[vid] = chain_env[(ref.entry, ref.out_idx)]
 
-        seq = self.runner.submit(run)
+        seq = self.runner.submit(run, "runner.chain")
         self.store.fence(var_ids, assigns, seq)
         self.stats["segments_dispatched"] += 1
         ev.segment_dispatch(self.events, self.iter_id, "chain", start, seq,

@@ -84,7 +84,7 @@ class TerraEngine(PythonRunnerOps, VariableOps):
         self.skip_files: Tuple[str, ...] = ()
         self._seed = int(seed)
         self._chain_cache: Dict[Tuple, Any] = {}
-        self.capture = capture_mod.context_for(self.device)   # CUDA graphs
+        self.capture = capture_mod.context_for(self.device, self.events)
         # sampled device-time profiling cadence (DESIGN.md §15); 0 = off
         self.profile_every = 0
 
@@ -144,7 +144,8 @@ class TerraEngine(PythonRunnerOps, VariableOps):
             snap: Dict[int, Any] = {}
             self._snapshot_slot = snap
             store = self.store
-            seq = self.runner.submit(lambda: store.snapshot_into(snap))
+            seq = self.runner.submit(lambda: store.snapshot_into(snap),
+                                     "runner.snapshot")
             # the snapshot reads every live buffer: fence it so a driver
             # rebind/release (reset_variable / release_variable) cannot
             # swap a buffer out from under the pending snapshot

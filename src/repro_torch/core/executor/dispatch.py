@@ -209,7 +209,7 @@ class SegmentDispatcher(Dispatcher):
 
             # the fence is the submit sequence itself: even if the closure
             # raises, the runner completes the sequence, so fences release
-            seq = self.runner.submit(run)
+            seq = self.runner.submit(run, "runner.segment")
             store.fence(plan.don_var_ids, plan.var_writes, seq)
             store.fence(plan.keep_var_ids, (), seq)
             stats["segments_dispatched"] += 1

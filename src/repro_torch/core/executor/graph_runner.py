@@ -28,6 +28,11 @@ runner thread's kernels are ordered after the Python thread's without
 events.  ``exec_time`` therefore measures
 enqueue-to-enqueue runner occupancy, and wall-clock device sync is visible
 only in ``py_stall_time`` at fetch points (see DESIGN.md §4).
+
+Each closure runs inside a span named by its submitter (``runner.segment``,
+``runner.chain``, ``runner.steady``, ``runner.varop``,
+``runner.snapshot``) carrying its sequence number, on the runner's thread
+(DESIGN.md §15).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import time
 from collections import deque
 
 from repro_torch.core.events import types as _T
+from repro_torch.core.events.spans import NO_SPAN
 
 
 class GraphRunner:
@@ -66,10 +72,11 @@ class GraphRunner:
             self._worker.start()
 
     # ------------------------------------------------------------------
-    def submit(self, closure) -> int:
-        """Enqueue; returns the closure's 1-based completion sequence."""
+    def submit(self, closure, span: str) -> int:
+        """Enqueue; returns the closure's 1-based completion sequence.
+        ``span`` names the span the closure runs in."""
         with self._cv:
-            self._dq.append(closure)
+            self._dq.append((closure, span))
             self._submitted += 1
             seq = self._submitted
             self._cv.notify()
@@ -80,13 +87,17 @@ class GraphRunner:
         a stale read only under-reports, which at worst waits once more)."""
         return self._completed >= seq
 
-    def _run_one(self, closure):
+    def _run_one(self, closure, span: str):
         t0 = time.perf_counter()
         stalled = max(0.0, t0 - self._last_done) if self._open else 0.0
         self.stall_time += stalled
+        es = self.events
         err = None
         try:
-            closure()
+            # FIFO: the closure running is the next one to complete
+            with (es.span(span, seq=self._completed + 1) if es is not None
+                  else NO_SPAN):
+                closure()
         except Exception as e:                  # noqa: BLE001 — keep alive
             err = e
         finally:
@@ -102,7 +113,6 @@ class GraphRunner:
                 self._completed += 1
                 seq = self._completed
                 self._cv.notify_all()
-            es = self.events
             if es is not None and es.on:
                 es.emit(_T.RunnerComplete(seq, t1 - t0, stalled))
 
@@ -112,10 +122,10 @@ class GraphRunner:
             with cv:
                 while not dq:
                     cv.wait()
-                closure = dq.popleft()
-            if closure is None:
+                item = dq.popleft()
+            if item is None:
                 return
-            self._run_one(closure)
+            self._run_one(*item)
 
     # ------------------------------------------------------------------
     # iteration window (stall accounting) + cancellation
@@ -167,11 +177,11 @@ class GraphRunner:
         dq = self._dq
         while True:
             try:
-                closure = dq.popleft()
+                item = dq.popleft()
             except IndexError:
                 break
-            if closure is not None:
-                self._run_one(closure)
+            if item is not None:
+                self._run_one(*item)
         err = self.pending_error
         if err is not None:
             self.pending_error = None

@@ -232,11 +232,12 @@ class PythonRunnerOps:
         return self._await(t, fut)
 
     def _await(self, t: TerraTensor, fut):
-        t0 = time.perf_counter()
-        if self.runner.lazy:
-            self.runner.run_pending_now()
-        v = fut.result()
-        self.events.add("py_stall_time", time.perf_counter() - t0)
+        with self.events.span("engine.fetch", it=self.iter_id):
+            t0 = time.perf_counter()
+            if self.runner.lazy:
+                self.runner.run_pending_now()
+            v = fut.result()
+            self.events.add("py_stall_time", time.perf_counter() - t0)
         t._eager = v
         return v
 

@@ -14,7 +14,6 @@ def init_stats() -> Dict[str, Any]:
         # paper Fig. 6 breakdown / App. F transitions
         "iterations": 0, "traced_iterations": 0, "transitions": 0,
         "replays": 0, "replayed_entries": 0, "py_stall_time": 0.0,
-        "py_total_time": 0.0,       # wall time inside TerraFunction calls
         "graph_versions": 0, "segments_dispatched": 0,
         "segments_recompiled": 0, "segment_cache_hits": 0,
         "donated_bytes": 0,

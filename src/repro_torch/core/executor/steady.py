@@ -273,7 +273,7 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
         for k, v in zip(dp.fetch_keys, fetches):
             futures[k].set_result(v)
 
-    seq = eng.runner.submit(run)
+    seq = eng.runner.submit(run, "runner.steady")
     store.fence(dp.don_var_ids, dp.var_writes, seq)
     store.fence(dp.keep_var_ids, (), seq)
     # advance the engine's iteration clock so tensors of the *previous*

@@ -61,9 +61,10 @@ class VariableOps:
         work on this thread, as drain() used to."""
         if seq is None or self.runner.done(seq):
             return
-        t0 = time.perf_counter()
-        self.runner.wait_for(seq)
-        self.events.add("py_stall_time", time.perf_counter() - t0)
+        with self.events.span("engine.fetch", seq=seq):
+            t0 = time.perf_counter()
+            self.runner.wait_for(seq)
+            self.events.add("py_stall_time", time.perf_counter() - t0)
 
     def variable_value(self, var: Variable):
         self._ensure_var(var)

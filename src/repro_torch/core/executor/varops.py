@@ -62,6 +62,6 @@ def submit_variable_update(eng, reads: Sequence[Variable],
         for f, v in zip(futs, outs[len(write_ids):]):
             f.set_result(v)
 
-    seq = eng.runner.submit(run)
+    seq = eng.runner.submit(run, "runner.varop")
     store.fence(read_ids, write_ids, seq)
     return futs

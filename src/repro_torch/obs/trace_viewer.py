@@ -14,6 +14,10 @@ layout makes the paper's overlap claim *visible*:
 * process 2 ``requests`` — one lane per request id; the admit → retire
   span with per-token instants, and flow arrows chaining
   submit → admit → prefill → first token → retire.
+* process 3 ``spans`` — recorded spans (``SpanRecorder.spans()``, passed
+  as ``chrome_trace(events, spans)``): one lane per thread they ran on,
+  nested as they nest, and a ``device`` lane with each device-timed
+  span's time on the card.
 
 :class:`TraceViewerExporter` is the live-processor wrapper: one list
 append per event (the same discipline as ``JsonlSink``; this is what the
@@ -24,12 +28,13 @@ bench's ≥0.98× profiling-overhead gate measures), rendering deferred to
 from __future__ import annotations
 
 import json
+import time
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.events import types as T
 from repro_torch.core.events.processors import Processor
 
-PID_ENGINE, PID_REQ = 1, 2
+PID_ENGINE, PID_REQ, PID_SPANS = 1, 2, 3
 TID_PY, TID_WALKER, TID_RUNNER, TID_DEVICE, TID_SCHED = 1, 2, 3, 4, 5
 _TID_NAMES = {TID_PY: "python (imperative)", TID_WALKER: "walker",
               TID_RUNNER: "graph-runner", TID_DEVICE: "device (sampled)",
@@ -65,10 +70,36 @@ def _flow(ph, fid, name, pid, tid, ts) -> Dict:
     return e
 
 
-def chrome_trace(events: List[Any]) -> Dict[str, Any]:
-    """Build the trace-event JSON dict for a list of typed events."""
+def _span_slices(spans, us) -> List[Dict]:
+    """Process 3: each span on its thread's lane (lane 1 is the card's),
+    ``us(ns)`` placing an epoch-ns stamp on the trace's base."""
+    out = [_meta(PID_SPANS, 0, "spans", "process_name"),
+           _meta(PID_SPANS, 1, "device")]
+    lanes: Dict[int, int] = {}
+    for sp in spans:
+        if sp.thread not in lanes:
+            lanes[sp.thread] = len(lanes) + 2
+            out.append(_meta(PID_SPANS, lanes[sp.thread], sp.thread_name))
+        args = dict(sp.ids, id=sp.id, parent=sp.parent)
+        out.append(_x(sp.name, PID_SPANS, lanes[sp.thread], us(sp.t0_ns),
+                      us(sp.t1_ns) - us(sp.t0_ns), args))
+        if sp.device_ms is not None:
+            start = sp.device_t0_ns if sp.device_t0_ns is not None \
+                else sp.t0_ns
+            out.append(_x(sp.name, PID_SPANS, 1, us(start),
+                          sp.device_ms * 1e3, args))
+    return out
+
+
+def chrome_trace(events: List[Any], spans=()) -> Dict[str, Any]:
+    """Build the trace-event JSON dict for a list of typed events and,
+    optionally, recorded spans.  Spans are stamped on the epoch clock;
+    they are put on the events' base through the offset between that
+    clock and ``time.perf_counter`` (the stream's default clock)."""
     stamped = [e for e in events if e.ts is not None]
-    t0 = min((e.ts for e in stamped), default=0.0)
+    off = time.time() - time.perf_counter()
+    t0 = min([e.ts for e in stamped] + [sp.t0_ns * 1e-9 - off
+                                        for sp in spans], default=0.0)
 
     def us(ts: float) -> float:
         return (ts - t0) * 1e6
@@ -173,6 +204,8 @@ def chrome_trace(events: List[Any]) -> Dict[str, Any]:
                              PID_REQ, e.rid, ts))
     out.extend(_meta(PID_REQ, rid, f"request {rid}")
                for rid in dict.fromkeys(seen_rids))
+    if spans:
+        out += _span_slices(spans, lambda ns: us(ns * 1e-9 - off))
     out.sort(key=lambda d: (d.get("ts", -1.0), d["pid"], d["tid"]))
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 

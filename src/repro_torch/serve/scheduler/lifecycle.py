@@ -19,6 +19,7 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 from repro_torch.core.executor.families import bucket_pow2
+from repro_torch.serve.scheduler import telemetry as tm
 from repro_torch.serve.scheduler.pool_ops import pads_allowed
 
 
@@ -116,6 +117,37 @@ def record_token(request, token: int, now: float) -> bool:
     if finished and request.finish_time is None:
         request.finish_time = now
     return finished
+
+
+def deliver(sch, kind: str, toks, extra, now: float) -> None:
+    """Hand one harvested token frame (``toks``, [rows, 1]) to the
+    requests of the step that made it: ``extra`` is a decode step's
+    (slot, request) pairs or a prefill step's plan.  Each token is
+    recorded and its streaming callback queued; a finished request
+    retires and frees its slot."""
+    if kind == "decode":
+        for slot, req in extra:
+            # a request retired by an earlier harvest may have been
+            # dispatched one garbage step (lag): never deliver it
+            if req.done or sch.pool.requests[slot] is not req:
+                continue
+            _deliver_one(sch, req, int(toks[slot, 0]), slot, now)
+    else:
+        for i, req in enumerate(extra.requests):
+            _deliver_one(sch, req, int(toks[i, 0]), int(extra.slots[i]),
+                         now)
+
+
+def _deliver_one(sch, req, token: int, slot: int, now: float) -> None:
+    finished = record_token(req, token, now)
+    sch.sched_stats["generated_tokens"] += 1
+    tm.request_token(sch.events, req, token)
+    sch.callbacks.push(req, token)
+    if finished:
+        sch.pool.release(slot)
+        sch.sched_stats["retired"] += 1
+        tm.request_retire(sch.events, req)
+        sch.planner.mark_dirty()
 
 
 class CallbackQueue:

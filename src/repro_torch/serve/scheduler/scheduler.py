@@ -36,7 +36,7 @@ from repro_torch.serve.scheduler import checkpoint as ckpt
 from repro_torch.serve.scheduler import pool_ops
 from repro_torch.serve.scheduler import telemetry as tm
 from repro_torch.serve.scheduler.lifecycle import (ArrivalQueue, CallbackQueue,
-                                             record_token)
+                                             deliver)
 from repro_torch.serve.scheduler.paged import PagedLayout
 from repro_torch.serve.scheduler.planner import (DecodePlan, IdlePlan,
                                            PrefillPlan, StepPlanner)
@@ -115,10 +115,13 @@ class ContinuousBatchingScheduler:
                                    prefill_batch_cap or max_slots,
                                    bucket_floor)
         self._pending = None            # the one in-flight (lagged) step
+        self._step_no = 0               # loop passes, the spans' ``step``
         # one instrumentation substrate (§13): share the engine's stream
         self.events = tm.make_stream(
             self._tf.engine.events if use_terra else None, clock)
         self.sched_stats = self.events.counters
+        if not use_terra and self._capture is not None:
+            self._capture.events = self.events      # its spans (§15)
         self._rid = 0
         self._ckpt_kw = dict(       # the recipe checkpoint() persists
             max_slots=max_slots, max_len=max_len, temperature=temperature,
@@ -158,29 +161,34 @@ class ContinuousBatchingScheduler:
     def run(self, max_steps: Optional[int] = None) -> None:
         """Serve until drained, one step deep: dispatch the next step,
         *then* harvest the previous step's token frame."""
-        steps = 0
+        steps, es = 0, self.events
         while (len(self.queue) or self.pool.active_count
                or self._pending is not None):
-            plan = self.planner.next_plan(self.clock())
-            if isinstance(plan, PrefillPlan):
-                nxt = self._dispatch_prefill(plan)
-            elif isinstance(plan, DecodePlan):
-                nxt = self._dispatch_decode(plan)
-            else:
-                nxt = None
-            prev, self._pending = self._pending, nxt
-            if prev is not None:
-                self._harvest(prev)
-                self.callbacks.flush()
-            elif nxt is None:
-                self._idle(plan)
+            self._step_no += 1
+            with es.span("sched.step", step=self._step_no):
+                with es.span("sched.plan", step=self._step_no):
+                    plan = self.planner.next_plan(self.clock())
+                if isinstance(plan, PrefillPlan):
+                    nxt = self._dispatch_prefill(plan)
+                elif isinstance(plan, DecodePlan):
+                    nxt = self._dispatch_decode(plan)
+                else:
+                    nxt = None
+                prev, self._pending = self._pending, nxt
+                if prev is not None:
+                    self._harvest(prev)
+                    with es.span("sched.deliver", step=prev[3]):
+                        self.callbacks.flush()
+                elif nxt is None:
+                    self._idle(plan)
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
         if self._pending is not None:
             self._harvest(self._pending)
             self._pending = None
-        self.callbacks.flush()
+        with es.span("sched.deliver"):
+            self.callbacks.flush()
         if self.use_terra:
             self._tf.wait()
 
@@ -232,129 +240,117 @@ class ContinuousBatchingScheduler:
         return tok
 
     def _dispatch_decode(self, plan: DecodePlan):
-        t0 = time.perf_counter()
-        if self.use_terra:
-            tok = (self._tf(plan.mask) if plan.bt is None
-                   else self._tf(plan.mask, plan.bt))
-            if isinstance(tok, TerraTensor):
-                if self._tf.engine.mode != SKELETON:
-                    # warmup: fetch now so the trace records the fetch
-                    # point (§4.2) the lagged harvest relies on
-                    tok = np.asarray(tok)
-                elif tok._eager is None and tok._future is None:
-                    tok = np.asarray(tok)   # mid-replay: fetch, not stale
-        else:
-            dev = self.device
-            args = self._params_leaves + self._cache_leaves
-            args += [self._pos, self._tokf, as_tensor(plan.mask, dev)]
-            if plan.bt is not None:
-                args.append(as_tensor(plan.bt, dev))
-            if self._has_rng:
-                args.append(as_tensor(self._next_key(), dev))
-            outs = self._decode_fn(*args)
-            tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
-            self._cache_leaves = list(outs[1:-2])
-        pairs = [(s, r) for s, r in self.pool.active_items() if plan.mask[s]]
-        self.pool.advance_active(plan.mask)
-        self.planner.consume(plan.mask)
-        self.sched_stats["decode_steps"] += 1
-        tm.step_done(self, "decode", int(plan.mask.sum()), t0)
-        return ("decode", tok, pairs)
+        with self.events.span("sched.dispatch.decode",
+                              step=self._step_no) as sp:
+            t0 = time.perf_counter()
+            if self.use_terra:
+                tok = (self._tf(plan.mask) if plan.bt is None
+                       else self._tf(plan.mask, plan.bt))
+                if isinstance(tok, TerraTensor):
+                    if self._tf.engine.mode != SKELETON:
+                        # warmup: fetch now so the trace records the fetch
+                        # point (§4.2) the lagged harvest relies on
+                        tok = np.asarray(tok)
+                    elif tok._eager is None and tok._future is None:
+                        tok = np.asarray(tok)   # mid-replay: fetch, not stale
+            else:
+                dev = self.device
+                args = self._params_leaves + self._cache_leaves
+                args += [self._pos, self._tokf, as_tensor(plan.mask, dev)]
+                if plan.bt is not None:
+                    args.append(as_tensor(plan.bt, dev))
+                if self._has_rng:
+                    args.append(as_tensor(self._next_key(), dev))
+                outs = self._decode_fn(*args)
+                tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
+                self._cache_leaves = list(outs[1:-2])
+            pairs = [(s, r) for s, r in self.pool.active_items()
+                     if plan.mask[s]]
+            if sp:
+                sp.ids.update(rows=len(pairs), rids=[r.rid for _, r in pairs])
+            self.pool.advance_active(plan.mask)
+            self.planner.consume(plan.mask)
+            self.sched_stats["decode_steps"] += 1
+            tm.step_done(self, "decode", int(plan.mask.sum()), t0)
+            return ("decode", tok, pairs, self._step_no)
 
     def _dispatch_prefill(self, plan: PrefillPlan):
-        t0 = time.perf_counter()
-        self.sched_stats["prefill_steps"] += 1
-        self.sched_stats["admitted"] += len(plan.requests)
-        self.sched_stats["prefill_tokens"] += int(
-            np.sum(plan.lengths[:len(plan.requests)]))
-        tm.admitted(self.events, plan, self.clock())
-        dev = self.device
-        key = as_tensor(self._next_key(), dev) if self._has_rng else None
-        frames = [as_tensor(plan.tokens, dev), as_tensor(plan.slots, dev),
-                  as_tensor(plan.lengths, dev)]
-        if plan.bt_rows is not None:
-            frames.append(as_tensor(plan.bt_rows, dev))
-        if not self.use_terra:
-            args = self._params_leaves + self._cache_leaves
-            args += [self._pos, self._tokf] + frames
-            if key is not None:
-                args.append(key)
-            outs = self._prefill_fn(*args)
-            tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
-            self._cache_leaves = list(outs[1:-2])
-            tm.step_done(self, "prefill", len(plan.requests), t0)
-            return ("prefill", tok, plan)
-        eng = self._tf.engine
-        state_vars = self._cache_vars + [self._pos_var, self._tokf_var]
-        if eng.mode != SKELETON:
-            # warmup (tracing) path: ops still run on the Python thread,
-            # so the out-of-band rebind (§8) is the correct splice
-            bufs = self._params_leaves + [eng.variable_value(v)
-                                          for v in state_vars]
-            outs = self._prefill_fn(*(bufs + frames
-                                       + ([key] if key is not None else [])),
-                                     **self._attrs)
-            for var, leaf in zip(state_vars, list(outs[1:-2]) + [outs[-2],
-                                                                 outs[-1]]):
-                eng.reset_variable(var, leaf)
-            tok = to_numpy(outs[0])
-        else:
-            # co-execution: consume the pool Variables' device buffers in
-            # place through a fenced GraphRunner closure (§12); no stall
-            pfn, attrs, nc = self._prefill_fn, self._attrs, self._nc
-
-            def splice(bufs):
-                args = bufs + frames
+        with self.events.span("sched.dispatch.prefill",
+                              step=self._step_no) as sp:
+            t0 = time.perf_counter()
+            ntok = tm.prefill_admitted(self, plan, sp)
+            dev = self.device
+            key = as_tensor(self._next_key(), dev) if self._has_rng else None
+            frames = [as_tensor(plan.tokens, dev), as_tensor(plan.slots, dev),
+                      as_tensor(plan.lengths, dev)]
+            if plan.bt_rows is not None:
+                frames.append(as_tensor(plan.bt_rows, dev))
+            if not self.use_terra:
+                args = self._params_leaves + self._cache_leaves
+                args += [self._pos, self._tokf] + frames
                 if key is not None:
                     args.append(key)
-                outs = pfn(*args, **attrs)
-                return tuple(outs[1:-2]) + (outs[-2], outs[-1], outs[0])
+                with tm.prefill_span(self.events, plan, ntok):
+                    outs = self._prefill_fn(*args)
+                tok, self._pos, self._tokf = outs[0], outs[-2], outs[-1]
+                self._cache_leaves = list(outs[1:-2])
+                tm.step_done(self, "prefill", len(plan.requests), t0)
+                return ("prefill", tok, plan, self._step_no)
+            eng = self._tf.engine
+            state_vars = self._cache_vars + [self._pos_var, self._tokf_var]
+            if eng.mode != SKELETON:
+                # warmup (tracing) path: ops still run on the Python thread,
+                # so the out-of-band rebind (§8) is the correct splice
+                bufs = self._params_leaves + [eng.variable_value(v)
+                                              for v in state_vars]
+                bufs += frames + ([key] if key is not None else [])
+                with tm.prefill_span(self.events, plan, ntok):
+                    outs = self._prefill_fn(*bufs, **self._attrs)
+                leaves = list(outs[1:-2]) + [outs[-2], outs[-1]]
+                for var, leaf in zip(state_vars, leaves):
+                    eng.reset_variable(var, leaf)
+                tok = to_numpy(outs[0])
+            else:
+                # co-execution: consume the pool Variables' device buffers in
+                # place through a fenced GraphRunner closure (§12); no stall
+                pfn, attrs, es = self._prefill_fn, self._attrs, self.events
 
-            tok = varops.submit_variable_update(
-                eng, self._param_vars + state_vars, state_vars,
-                splice, n_results=1)[0]
-        tm.step_done(self, "prefill", len(plan.requests), t0)
-        return ("prefill", tok, plan)
+                def splice(bufs):
+                    args = bufs + frames
+                    if key is not None:
+                        args.append(key)
+                    with tm.prefill_span(es, plan, ntok):
+                        outs = pfn(*args, **attrs)
+                    return tuple(outs[1:-2]) + (outs[-2], outs[-1], outs[0])
+
+                tok = varops.submit_variable_update(
+                    eng, self._param_vars + state_vars, state_vars,
+                    splice, n_results=1)[0]
+            tm.step_done(self, "prefill", len(plan.requests), t0)
+            return ("prefill", tok, plan, self._step_no)
 
     # ------------------------------------------------------------------
     # harvest + delivery (one step behind dispatch)
     # ------------------------------------------------------------------
     def _harvest(self, entry) -> None:
-        kind, payload, extra = entry
-        t0 = time.perf_counter()
-        toks = to_numpy(payload.result()) if isinstance(payload, Future) \
-            else to_numpy(payload)
-        tm.harvest_done(self, kind, t0)
-        now = self.clock()
-        if kind == "decode":
-            for slot, req in extra:
-                # a request retired by an earlier harvest may have been
-                # dispatched one garbage step (lag): never deliver it
-                if req.done or self.pool.requests[slot] is not req:
-                    continue
-                self._deliver(req, int(toks[slot, 0]), slot, now)
-        else:
-            for i, req in enumerate(extra.requests):
-                self._deliver(req, int(toks[i, 0]), int(extra.slots[i]), now)
-
-    def _deliver(self, req, token: int, slot: int, now: float) -> None:
-        finished = record_token(req, token, now)
-        self.sched_stats["generated_tokens"] += 1
-        tm.request_token(self.events, req, token)
-        self.callbacks.push(req, token)
-        if finished:
-            self.pool.release(slot)
-            self.sched_stats["retired"] += 1
-            tm.request_retire(self.events, req)
-            self.planner.mark_dirty()
+        kind, payload, extra, step = entry
+        es = self.events
+        with es.span("sched.fetch", step=step):
+            t0 = time.perf_counter()
+            toks = to_numpy(payload.result()) \
+                if isinstance(payload, Future) else to_numpy(payload)
+            tm.harvest_done(self, kind, t0)
+        with es.span("sched.deliver", step=step):
+            deliver(self, kind, toks, extra, self.clock())
 
     def _idle(self, plan: IdlePlan) -> None:
-        self.callbacks.flush()
-        self.sched_stats["idle_waits"] += 1
-        tm.idle(self.events, plan.wait)
-        if plan.wait and plan.wait > 0:
-            # the stream owns the clock semantics (real sleep vs. yield)
-            self.events.sleep(min(plan.wait, 0.02))
+        with self.events.span("sched.idle", step=self._step_no):
+            self.callbacks.flush()
+            self.sched_stats["idle_waits"] += 1
+            tm.idle(self.events, plan.wait)
+            if plan.wait and plan.wait > 0:
+                # the stream owns the clock semantics (real sleep vs. yield)
+                self.events.sleep(min(plan.wait, 0.02))
 
     def _next_key(self):
         return ops_mod.draw_key(self._prefill_gen)

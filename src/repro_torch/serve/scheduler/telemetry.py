@@ -76,6 +76,31 @@ def admitted(es: EventStream, plan, now: float) -> None:
                                  len(req.prompt)))
 
 
+def prefill_admitted(sch, plan, sp) -> int:
+    """Count one admission prefill (its step, rows and real prompt
+    tokens), emit its admission events and name its rows on its dispatch
+    span ``sp``; returns the prompt tokens."""
+    st, n = sch.sched_stats, len(plan.requests)
+    tokens = int(plan.lengths[:n].sum())
+    st["prefill_steps"] += 1
+    st["admitted"] += n
+    st["prefill_tokens"] += tokens
+    if sp:
+        sp.ids.update(rows=n, bucket=int(plan.bucket), tokens=tokens,
+                      rids=[r.rid for r in plan.requests])
+    admitted(sch.events, plan, sch.clock())
+    return tokens
+
+
+def prefill_span(es: EventStream, plan, tokens: int):
+    """The device-timed ``step.prefill`` span around one prefill's
+    launches, naming its rows' requests and real prompt tokens."""
+    sp = es.span("step.prefill", device=True)
+    if sp:
+        sp.ids.update(rids=[r.rid for r in plan.requests], tokens=tokens)
+    return sp
+
+
 def request_token(es: EventStream, req, token: int) -> None:
     if es.on:
         es.emit(T.RequestToken(req.rid, int(token),
