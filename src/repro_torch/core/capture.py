@@ -30,6 +30,16 @@ is a tree of tensors.
   buffer).  After a replay the caller's donated tensor holds the new
   value: the graph wrote it in place, or it is copied back from the static
   buffer.
+* **Home buffers.**  ``wrap(..., home=True)`` (a steady iteration's
+  segment, which no snapshot can hold: core/graphgen.py) gives every
+  donated tensor argument one *home* buffer that the graph owns: the
+  caller's tensor of call 2 when it kept its address since call 1, else
+  a new one.  A replay copies the caller's tensor into the home buffer
+  only when it is not the home buffer (after a prefill's splice or a
+  walker probe wrote the variable elsewhere; ``home_copies`` counts such
+  replays), and hands the home buffer back as the donated variable's new
+  value: no copy back, no copy out, and no recapture when the caller's
+  tensor moves.  ``copy_in_bytes`` counts the copies made.
 * **Ownership.**  A replay overwrites the graph's outputs.  Every output
   escapes into state that outlives the next replay — variable writes
   become the store's committed values and the divergence snapshot's
@@ -143,12 +153,13 @@ class CaptureContext:
         self.stream = _side_stream(device)
         self.stats: Dict[str, int] = dict(
             graphs=0, replays=0, recaptures=0, warmups=0, eager_fns=0,
-            copy_in_bytes=0, copy_out_bytes=0)
+            copy_in_bytes=0, copy_out_bytes=0, home_copies=0)
         self._fns: "weakref.WeakSet[CapturedFn]" = weakref.WeakSet()
 
     def wrap(self, fn: Callable, donate: Sequence[int] = (),
-             host: Optional[Callable] = None) -> "CapturedFn":
-        cf = CapturedFn(fn, self, donate, host)
+             host: Optional[Callable] = None,
+             home: bool = False) -> "CapturedFn":
+        cf = CapturedFn(fn, self, donate, host, home)
         self._fns.add(cf)
         return cf
 
@@ -181,11 +192,12 @@ def release(ctx: Optional[CaptureContext]) -> None:
 class _Graph:
     """One captured key: the graph, how each tensor argument reaches it
     (``static[j]`` is (a buffer copied into, donated?), or None when the
-    graph reads the caller's tensor at ``ptrs[j]``), and how each output
+    graph reads the caller's tensor at ``ptrs[j]`` or its home buffer),
+    the home buffers ((buffer, leaf index) pairs), and how each output
     leaves it."""
 
-    __slots__ = ("graph", "static", "ptrs", "outs", "out_def", "delta",
-                 "copy_in", "copy_back", "copy_out", "in_bytes",
+    __slots__ = ("graph", "static", "ptrs", "homes", "outs", "out_def",
+                 "delta", "copy_in", "copy_back", "copy_out", "in_bytes",
                  "out_bytes", "__weakref__")
 
 
@@ -203,11 +215,13 @@ class CapturedFn:
     the module docstring)."""
 
     def __init__(self, fn: Callable, ctx: CaptureContext,
-                 donate: Sequence[int] = (), host: Optional[Callable] = None):
+                 donate: Sequence[int] = (), host: Optional[Callable] = None,
+                 home: bool = False):
         self.fn = fn
         self.ctx = ctx
         self.donate = tuple(donate)
         self.host = host
+        self.home = home
         self._entries: Dict[Any, _Entry] = {}
 
     def release(self) -> None:
@@ -234,7 +248,8 @@ class CapturedFn:
         else:
             g = ent.g
             moved = {j for j, (i, p) in enumerate(zip(tix, g.ptrs))
-                     if g.static[j] is None and leaves[i].data_ptr() != p}
+                     if g.static[j] is None and p is not None
+                     and leaves[i].data_ptr() != p}
             if moved:
                 ent.copied |= moved
                 ent.g = None                # drop the old graph first
@@ -273,9 +288,19 @@ class CapturedFn:
         g = _Graph()
         donated = self._donated_leaves(args)
         static_leaves = list(leaves)
-        g.static, g.ptrs = [], []
+        g.static, g.ptrs, g.homes = [], [], []
         for j, i in enumerate(tix):
             x = leaves[i]
+            if self.home and i in donated:
+                # the graph's own buffer: call 2's tensor when it stayed put
+                # (the caller owns nothing else), else a new one that each
+                # replay fills until the caller hands the home buffer back
+                if j in copied:
+                    x = static_leaves[i] = torch.empty_like(x)
+                g.homes.append((x, i))
+                g.static.append(None)
+                g.ptrs.append(None)
+                continue
             if j in copied:
                 s = x.clone()
                 static_leaves[i] = s
@@ -298,11 +323,14 @@ class CapturedFn:
             f.launches -= d                 # recorded, not launched yet
         out_leaves, g.out_def = tree_flatten(out)
         by_id = {id(static_leaves[i]): i for i in tix}
+        homes = {id(h): h for h, _ in g.homes}
         outs: List[Tuple] = []
         first: Dict[int, int] = {}
         for k, o in enumerate(out_leaves):
             if not isinstance(o, torch.Tensor):
                 outs.append(("const", o))
+            elif id(o) in homes:            # the same tensor every replay
+                outs.append(("const", homes[id(o)]))
             elif id(o) in by_id:
                 outs.append(("arg", by_id[id(o)]))
             elif id(o) in first:
@@ -326,9 +354,18 @@ class CapturedFn:
     def _replay(self, g: _Graph, leaves):
         stats, span = self.ctx.stats, self.ctx.events.span
         statics, idx = g.copy_in
+        srcs = [leaves[i] for i in idx]
+        in_bytes = g.in_bytes
+        moved = [(h, leaves[i]) for h, i in g.homes
+                 if leaves[i].data_ptr() != h.data_ptr()]
+        if moved:
+            statics = statics + [h for h, _ in moved]
+            srcs += [x for _, x in moved]
+            in_bytes += sum(h.nbytes for h, _ in moved)
+            stats["home_copies"] += 1
         if statics:
             with span("capture.copy_in", device=True):
-                torch._foreach_copy_(statics, [leaves[i] for i in idx])
+                torch._foreach_copy_(statics, srcs)
         with span("capture.replay", device=True):
             g.graph.replay()
         for f, d in zip(_COUNTED, g.delta):
@@ -343,7 +380,7 @@ class CapturedFn:
             with span("capture.copy_out", device=True):
                 torch._foreach_copy_(fresh, g.copy_out)
         stats["replays"] += 1
-        stats["copy_in_bytes"] += g.in_bytes
+        stats["copy_in_bytes"] += in_bytes
         stats["copy_out_bytes"] += g.out_bytes
         res, it = [], iter(fresh)
         for kind, v in g.outs:

@@ -100,6 +100,7 @@ class TerraFunction:
                                   device=device)
         self.engine.steady_state = int(steady_state)
         self.engine.steady_probe = int(steady_probe)
+        self.engine.steady_donated_bytes = 0    # steady.py's twin donates
         self.engine.profile_every = int(profile)
         functools.update_wrapper(self, fn)
 

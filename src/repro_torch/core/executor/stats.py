@@ -25,6 +25,8 @@ def init_stats() -> Dict[str, Any]:
         "steady_iters": 0,          # iterations dispatched without a walker
         "steady_entries": 0,        # steady plans built (entries into mode)
         "steady_exits": 0,          # plans dropped (divergence/rebuild)
+        # (the bytes a steady twin donates are the engine's
+        # ``steady_donated_bytes``: this dict stays the reference's)
         # GraphRunner occupancy, mirrored from the runner thread
         "runner_exec_time": 0.0, "runner_stall_time": 0.0,
         # shape-keyed TraceGraph families (DESIGN.md §8)

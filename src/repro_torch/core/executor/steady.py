@@ -26,6 +26,14 @@ caveat — documented, and why this is opt-in (``steady_state=0`` default):
 Python side effects inside ``fn`` do not run on steady iterations, and a
 *value*-dependent change of feed wiring inside ``fn`` is only caught at
 the next probe.
+
+A steady iteration takes no snapshot, so no rollback can need its
+iteration-start buffers: it dispatches the segment's *twin*
+(``GraphProgram.steady_twin``), which donates them and writes the
+variables' new values in place (DESIGN.md §4.2).  Walker iterations,
+probes included, keep the snapshot and the segment as compiled.
+The engine's ``steady_donated_bytes`` counts the bytes the twin
+donates; ``stats["donated_bytes"]`` stays the walker path's count.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ class SteadyPlan:
     out_specs: Tuple                # ((uid, oi), aval) per output leaf
     last_leaves: Optional[List[Any]] = None    # identity fast path
     count: int = 0                  # steady calls, drives probe cadence
+    twin: Any = None                # ``sp`` compiled to donate its reads
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +167,17 @@ def observe(eng, args, kwargs, out) -> None:
         fam.steady.last_leaves = plan.last_leaves
         return
     if fam.steady_streak >= threshold:
+        plan.twin = eng.gp.steady_twin(plan.sp)
         fam.steady = plan
         eng.stats["steady_entries"] += 1
         ev.steady_enter(eng.events, eng.iter_id, fam.key)
+
+
+def donates(eng, var_id: int) -> bool:
+    """True when a live steady plan's twin writes ``var_id``'s buffer in
+    place: a buffer read out of the store must then be copied."""
+    return any(f.steady is not None and var_id in f.steady.twin.don_var_ids
+               for f in eng.fm.families.values())
 
 
 def attach_futures(eng, out) -> None:
@@ -238,7 +255,7 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
     t0 = time.perf_counter()
     store, stats = eng.store, eng.stats
     buffers = store.buffers
-    sp = plan.sp
+    sp = plan.twin
     dp = sp.plan
     feeds = tuple(store.stage(leaves[li]) for li in plan.feed_slots)
     futures = {k: Future() for k in dp.fetch_keys}
@@ -254,7 +271,7 @@ def _dispatch(eng, plan: SteadyPlan, leaves):
         don_in = tuple(store.read(v) for v in dp.don_var_ids)
         keep_in = tuple(store.read(v) for v in dp.keep_var_ids)
         if don_in:
-            stats["donated_bytes"] += sum(b.nbytes for b in don_in)
+            eng.steady_donated_bytes += sum(b.nbytes for b in don_in)
         if profile:
             timer = SegmentTimer(store.device)
         try:

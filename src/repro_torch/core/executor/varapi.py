@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import ops as ops_mod
 from repro_torch.core.events import emit as ev
+from repro_torch.core.executor import steady
 from repro_torch.core.tensor import TerraTensor, Variable
 from repro_torch.core.trace import Aval, Ref, VarAssign, VarRef
 
@@ -80,9 +81,11 @@ class VariableOps:
         self._await_fence(self.store.write_fence(var.var_id))
         val = self.store.buffers[var.var_id]
         if (self._iter_open and self.mode == SKELETON and self.gp is not None
-                and var.var_id in self.gp.donatable_var_ids):
-            # a later segment of this iteration may donate this buffer;
-            # hand the caller a private copy (DESIGN.md §4.2)
+                and var.var_id in self.gp.donatable_var_ids) \
+                or steady.donates(self, var.var_id):
+            # a later segment of this iteration, or a steady iteration's
+            # twin, may write this buffer in place; hand the caller a
+            # private copy (DESIGN.md §4.2)
             val = val.clone()
         return val
 
@@ -104,7 +107,10 @@ class VariableOps:
         # variable only; rebinds between iterations no longer serialize
         # behind the whole previous iteration's queue
         self._await_fence(self.store.use_fence(var.var_id))
-        value = self.store.stage(value)
+        staged = self.store.stage(value)
+        if staged is value and steady.donates(self, var.var_id):
+            staged = staged.clone()     # a steady twin writes it in place
+        value = staged
         self.store.put(var.var_id, value)
         var._value = value
         new_aval = Aval.of(value)

@@ -43,6 +43,13 @@ Two compile-time analyses shape the callable:
   storage, so the store keeps one buffer per variable; a written value
   that a later segment will donate is made sole-owner first (cloned when
   it shares storage with any other input or output).
+
+A steady iteration (core/executor/steady.py) takes no snapshot, so its
+single segment runs as a *twin* (:meth:`GraphProgram.steady_twin`) that
+also donates iteration-start buffers; an op with an in-place form that
+is the only reader of the buffers it writes runs that form there, and
+on the card the twin's graph keeps each donated buffer at one home
+address (core/capture.py).
 """
 
 from __future__ import annotations
@@ -90,6 +97,9 @@ class SegProg:
     # persist layer writes AOT artifacts in canonical ids, aot.py)
     canon: Dict[int, int] = dataclasses.field(default_factory=dict)
     plan: "DispatchPlan" = None      # precomputed dispatch layout (§4.4)
+    # nodes that run their op's in-place form (a steady twin's only)
+    inplace: frozenset = frozenset()
+    twin: "SegProg" = None           # the steady twin, built on demand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -397,6 +407,68 @@ class GraphProgram:
                 last_write[v] = retained
                 writer[v] = sp
 
+    def steady_twin(self, sp: SegProg) -> SegProg:
+        """``sp`` compiled for a steady iteration, which takes no snapshot
+        (DESIGN.md §4.2, §12): every variable the segment reads and writes
+        is donated, iteration-start buffers included, unless its final
+        product escapes (a fetch, a carry, a switch phi or alias write, or
+        a buffer shared by two variables).  A top-level node whose op has
+        an in-place form runs it when each buffer it would write is a
+        donated variable that no other node reads and that the node's
+        output becomes.  Built once per segment and kept."""
+        if sp.twin is not None:
+            return sp.twin
+        writes = set(sp.var_writes)
+        prods = self._final_var_products(sp)
+        escaped = set(sp.fetch_keys) | set(sp.carries_out)
+        owners: Dict[Key, List[int]] = {}
+        for v in sp.var_writes:
+            if prods.get(v) is not None:
+                owners.setdefault(prods[v], []).append(v)
+        don = [v for v in sp.var_reads if v in writes
+               and prods.get(v) is not None and prods[v] not in escaped
+               and len(owners[prods[v]]) == 1]
+        don_set = set(don)
+        readers: Dict[int, int] = {}
+        for uid in self.structure.uids_in(sp.items):
+            if uid in self._dead or uid in self._alias:
+                continue
+            n = self._node(uid)
+            srcs = ([s for e in n.body.entries for s in e.srcs_local]
+                    if n.kind == "loop" else [])
+            for s in list(n.srcs) + srcs:
+                if s[0] == "var":
+                    readers[s[1]] = readers.get(s[1], 0) + 1
+        inplace = set()
+        for item in sp.items:
+            if not isinstance(item, NodeItem) or item.uid in self._dead \
+                    or item.uid in self._alias:
+                continue
+            n = self._node(item.uid)
+            op = ops_mod.OPS.get(n.op_name) if n.kind == "op" else None
+            if op is None or op.inplace is None:
+                continue
+            assigns = set(n.var_assigns)
+            pairs = op.writes(**dict(n.attrs))
+            if pairs and all(
+                    n.srcs[a][0] == "var" and n.srcs[a][1] in don_set
+                    and readers[n.srcs[a][1]] == 1
+                    and (n.srcs[a][1], o) in assigns
+                    and prods[n.srcs[a][1]] == (n.uid, o)
+                    for a, o in pairs):
+                inplace.add(n.uid)
+        twin = dataclasses.replace(
+            sp, don_var_ids=don,
+            keep_var_ids=[v for v in sp.var_reads if v not in don_set],
+            owned_writes=[], inplace=frozenset(inplace), twin=None,
+            plan=dataclasses.replace(
+                sp.plan, don_var_ids=tuple(don),
+                keep_var_ids=tuple(v for v in sp.var_reads
+                                   if v not in don_set)))
+        twin.fn = self._segment_fn(twin, self.segment_build(sp), home=True)
+        sp.twin = twin
+        return twin
+
     def _liveness(self, sp: SegProg) -> List[Tuple[Key, ...]]:
         """Keys to drop from the segment's env after each top-level item:
         every value after its last consumer (or right after its producer
@@ -453,10 +525,13 @@ class GraphProgram:
                             self._capturable(sp.items), tuple(sels),
                             tuple(trips))
 
-    def _segment_fn(self, sp: SegProg, build: SegmentBuild):
+    def _segment_fn(self, sp: SegProg, build: SegmentBuild,
+                    home: bool = False):
         """The segment callable: ``build``'s items run under
         ``torch.no_grad()`` with its liveness, wrapped for capture when
-        the engine captures and every op may be captured."""
+        the engine captures and every op may be captured.  ``home``: no
+        snapshot holds the donated arguments (a steady twin), so the
+        graph keeps them in home buffers."""
         items, frees = build.items, build.frees
 
         @torch.no_grad()
@@ -495,7 +570,7 @@ class GraphProgram:
                     tuple(int(trips[j]) for j in trip_slots))
 
         # arg 0 carries exactly the donation-eligible buffers (may be empty)
-        return self.capture.wrap(seg_fn, donate=(0,), host=host)
+        return self.capture.wrap(seg_fn, donate=(0,), host=host, home=home)
 
     def _capturable(self, items) -> bool:
         for uid in self.structure.uids_in(items):
@@ -582,7 +657,9 @@ class GraphProgram:
             return
         vals = [self._resolve(s, sp, ctx, n.uid, pos)
                 for pos, s in enumerate(n.srcs)]
-        out = ops_mod.OPS[n.op_name].impl(*vals, **dict(n.attrs))
+        op = ops_mod.OPS[n.op_name]
+        impl = op.inplace if n.uid in sp.inplace else op.impl
+        out = impl(*vals, **dict(n.attrs))
         outs = out if isinstance(out, tuple) else (out,)
         for oi, v in enumerate(outs):
             ctx["env"][(n.uid, oi)] = v

@@ -17,7 +17,12 @@ Argument convention
 
 Every impl is a plain function of torch tensors (and baked Python scalars)
 that never writes into its inputs: the engine keeps iteration-start
-buffers for rollback, so results are always fresh tensors or views.
+buffers for rollback, so results are always fresh tensors or views.  An
+op may also register an *in-place* form (``def_op(..., inplace=,
+writes=)``): the same results, with some outputs written into the inputs
+``writes(**attrs)`` names and those inputs returned in their place.  Only
+a caller that owns those inputs calls it (a steady iteration's twin,
+core/graphgen.py, DESIGN.md §4.2).
 
 Autodiff: ``GradientTape`` replays the recorded trace backwards, emitting one
 ``<op>.vjp`` operation per forward operation — so the backward pass lands in
@@ -31,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +58,10 @@ class OpDef:
     # False: the impl reads the device on the host or copies from pageable
     # memory, so a segment holding it cannot be a CUDA graph (capture.py)
     capturable: bool = True
+    # the in-place form: same signature and results, output ``o`` written
+    # into input ``a`` (and returned) for each (a, o) of ``writes(**attrs)``
+    inplace: Optional[Callable] = None
+    writes: Optional[Callable] = None
 
 
 OPS: Dict[str, OpDef] = {}
@@ -67,11 +76,15 @@ class Const:
         return hash((type(self.value).__name__, self.value))
 
 
-def def_op(name: str, impl: Callable, capturable: bool = True) -> Callable:
+def def_op(name: str, impl: Callable, capturable: bool = True,
+           inplace: Optional[Callable] = None,
+           writes: Optional[Callable] = None) -> Callable:
     """Register ``impl`` and return the user-facing instrumented function.
     ``capturable=False`` declares that the impl cannot run inside a CUDA
-    graph capture; segments and chains holding it then run eagerly."""
-    OPS[name] = OpDef(name, impl, capturable)
+    graph capture; segments and chains holding it then run eagerly.
+    ``inplace`` is the op's in-place form and ``writes(**attrs)`` the
+    (input position, output index) pairs it writes in place."""
+    OPS[name] = OpDef(name, impl, capturable, inplace, writes)
 
     def op_fn(*tensor_args, **attrs):
         return _call_op(name, tensor_args, attrs)

@@ -82,9 +82,12 @@ def _kpaged_decode_impl(*leaves, **attrs):
 
 
 if "kernel.rms_norm" not in ops_mod.OPS:
+    from repro_torch.serve.scheduler import inplace as _inplace
     ops_mod.def_op("kernel.rms_norm", _krms_impl)
     ops_mod.def_op("kernel.attention", _kattn_impl)
-    ops_mod.def_op("kernel.slot_decode_paged", _kpaged_decode_impl)
+    ops_mod.def_op("kernel.slot_decode_paged", _kpaged_decode_impl,
+                   inplace=_inplace.in_place_form(_kpaged_decode_impl),
+                   writes=_inplace.pool_writes)
     ops_mod._NONDIFF_OPS.update({"kernel.rms_norm", "kernel.attention",
                                  "kernel.slot_decode_paged"})
 

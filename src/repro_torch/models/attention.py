@@ -4,9 +4,11 @@ online-softmax path (peak memory O(Bq*Bk) instead of O(S^2)); paged
 single-token decode goes through the hand-written paged-attention kernel
 when the kernel-substituted decode op enables it (:func:`paged_kernel`).
 
-Caches are never written in place: the engine keeps iteration-start
-buffers for rollback, so each update makes a new tensor (in-place reuse
-comes with buffer donation, under the reference's legality rules).
+Caches are written in place only under :func:`cache_in_place`, which the
+pool ops' in-place forms set when their caller owns the cache (a steady
+iteration's donated pool, serve/scheduler/inplace.py); otherwise the
+engine may hold the iteration-start buffers for rollback, so each update
+makes a new tensor.
 """
 
 from __future__ import annotations
@@ -42,6 +44,22 @@ def paged_kernel():
         yield
     finally:
         _FLAGS.paged_kernel = prev
+
+
+def cache_in_place_enabled() -> bool:
+    return getattr(_FLAGS, "in_place", False)
+
+
+@contextlib.contextmanager
+def cache_in_place():
+    """Write the new K/V into the cache tensors the step was given (the
+    pool ops' in-place forms), instead of into fresh copies."""
+    prev = cache_in_place_enabled()
+    _FLAGS.in_place = True
+    try:
+        yield
+    finally:
+        _FLAGS.in_place = prev
 
 
 def _pick_block(s: int, target: int) -> int:
@@ -194,10 +212,14 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
         col = torch.clamp_max(idx.long() // bs, bt.shape[1] - 1)
         blk = torch.gather(bt.long(), 1, col[:, None])[:, 0]
         dest = blk * bs + idx.long() % bs          # flat arena position
-        kp = kp.reshape(nblk * bs, Hkv, D).index_copy(0, dest, kv) \
-            .reshape(kp.shape)
-        vp = vp.reshape(nblk * bs, Hkv, D).index_copy(0, dest, vv) \
-            .reshape(vp.shape)
+        if cache_in_place_enabled():
+            kp.view(nblk * bs, Hkv, D).index_copy_(0, dest, kv)
+            vp.view(nblk * bs, Hkv, D).index_copy_(0, dest, vv)
+        else:
+            kp = kp.reshape(nblk * bs, Hkv, D).index_copy(0, dest, kv) \
+                .reshape(kp.shape)
+            vp = vp.reshape(nblk * bs, Hkv, D).index_copy(0, dest, vv) \
+                .reshape(vp.shape)
         new_cache = {"kp": kp, "len": idx + 1, "vp": vp}
         if paged_kernel_enabled():
             from repro_torch.kernels import ops as kops
@@ -214,7 +236,9 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
         # tensor (slot-pooled serving: per-slot positions) — the vector
         # case writes each row at its own offset.
         idx = cache["len"]
-        kv, vv = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+        k_cache, v_cache = cache["k"], cache["v"]
+        kv, vv = k.to(k_cache.dtype), v.to(v_cache.dtype)
+        own = cache_in_place_enabled()
         if isinstance(idx, torch.Tensor):
             if S != 1:
                 raise NotImplementedError(
@@ -222,11 +246,18 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
                     "only (got S=%d)" % S)
             rows = torch.arange(B, device=x.device)
             col = idx.long()
-            k_cache = cache["k"].index_put((rows, col), kv[:, 0])
-            v_cache = cache["v"].index_put((rows, col), vv[:, 0])
+            if own:
+                k_cache.index_put_((rows, col), kv[:, 0])
+                v_cache.index_put_((rows, col), vv[:, 0])
+            else:
+                k_cache = k_cache.index_put((rows, col), kv[:, 0])
+                v_cache = v_cache.index_put((rows, col), vv[:, 0])
+        elif own:
+            k_cache[:, idx:idx + S] = kv
+            v_cache[:, idx:idx + S] = vv
         else:
-            k_cache = cache["k"].slice_scatter(kv, 1, idx, idx + S)
-            v_cache = cache["v"].slice_scatter(vv, 1, idx, idx + S)
+            k_cache = k_cache.slice_scatter(kv, 1, idx, idx + S)
+            v_cache = v_cache.slice_scatter(vv, 1, idx, idx + S)
         new_cache = {"k": k_cache, "v": v_cache, "len": idx + S}
         if S == 1:
             out = decode_attention(q, k_cache, v_cache, idx + 1,

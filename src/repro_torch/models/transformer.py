@@ -35,7 +35,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import (attention_block,
+                                          cache_in_place_enabled)
 from repro_torch.models.moe import moe_block
 from repro_torch.models.moe_ep import moe_block_ep
 from repro_torch.models.rglru import rglru_block
@@ -387,6 +388,16 @@ def _remat(cfg, body, policy=None):
     return run
 
 
+def _restack(base, *zs):
+    """The super-blocks' caches of one leaf stacked again under
+    attention.cache_in_place: ``base`` itself when every block wrote its
+    slice of ``base`` in place, else a new stacked tensor."""
+    if all(z.data_ptr() == base[i].data_ptr() and z.shape == base[i].shape
+           and z.stride() == base[i].stride() for i, z in enumerate(zs)):
+        return base
+    return torch.stack(zs)
+
+
 def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
     """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
     per-layer cache outputs are re-stacked along the leading axis."""
@@ -404,8 +415,12 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
                     caches=slot_caches, cache_len=cache_len,
                     cache_bt=cache_bt, cross_states=cross_states)
         ys.append(y)
-    new_layer_caches = (tree_map(lambda *zs: torch.stack(zs), *ys)
-                        if caches is not None else None)
+    if caches is None:
+        new_layer_caches = None
+    elif cache_in_place_enabled():
+        new_layer_caches = tree_map(_restack, scanned, *ys)
+    else:
+        new_layer_caches = tree_map(lambda *zs: torch.stack(zs), *ys)
 
     new_extra = []
     for i, kind in enumerate(cfg.extra_blocks):

@@ -34,7 +34,8 @@ block table ``bt`` [max_slots, nbps] fed each step; recurrent leaves
 block-wise through the admitted rows' tables (``bt_rows`` [b, nbps]).
 
 Every update writes into a fresh tensor (a clone), never into a pool
-buffer the engine's store or a rollback snapshot still holds.
+buffer the engine's store or a rollback snapshot still holds; the ops'
+in-place forms (inplace.py) are for callers that own the pool.
 
 Pytrees are flattened at the op boundary; a meta registry keeps the
 (static) treedefs and per-leaf scatter axes out of band.
@@ -57,6 +58,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.serve.meta import MetaRegistry
+from repro_torch.serve.scheduler.inplace import (in_place, in_place_form,
+                                                 pool_writes)
 
 # kinds whose cache reads tolerate right-padding (garbage entries beyond
 # the valid length are masked out by the attention valid-length mask);
@@ -209,11 +212,12 @@ def _pool_prefill(meta: PoolMeta, params, cache_leaves, pos, tokf, tokens,
 
     bs = meta.page_size
     slots = slots.long()
+    own = A.cache_in_place_enabled()
     new_leaves = []
     for pool_leaf, b_leaf, ax, pg in zip(cache_leaves, _flatten_cache(fresh),
                                          meta.batch_axes, meta.paged):
         b_leaf = b_leaf.to(pool_leaf.dtype)
-        new = pool_leaf.clone()
+        new = pool_leaf if own else pool_leaf.clone()
         if pg:
             # block-wise scatter of the dense bucket rows through the
             # admitted rows' block tables; unassigned table tail entries
@@ -233,9 +237,9 @@ def _pool_prefill(meta: PoolMeta, params, cache_leaves, pos, tokf, tokens,
         else:
             new[:, slots] = b_leaf
         new_leaves.append(new)
-    new_pos = pos.clone()
+    new_pos = pos if own else pos.clone()
     new_pos[slots] = lengths.to(pos.dtype)
-    new_tokf = tokf.clone()
+    new_tokf = tokf if own else tokf.clone()
     new_tokf[slots] = tok[:, None]
     return (tok[:, None],) + tuple(new_leaves) + (new_pos, new_tokf)
 
@@ -309,24 +313,17 @@ def _slot_decode_kernel_impl(*leaves, **attrs):
         return _slot_decode_impl(*leaves, **attrs)
 
 
-slot_prefill = def_op("serve.slot_prefill", _slot_prefill_impl)
-slot_decode = def_op("serve.slot_decode", _slot_decode_impl)
+slot_prefill = def_op("serve.slot_prefill", _slot_prefill_impl,
+                      inplace=in_place_form(_slot_prefill_impl),
+                      writes=pool_writes)
+slot_decode = def_op("serve.slot_decode", _slot_decode_impl,
+                     inplace=in_place_form(_slot_decode_impl),
+                     writes=pool_writes)
 
 
 # --------------------------------------------------------------------------
 # The ``use_terra=False`` baseline's step callables
 # --------------------------------------------------------------------------
-
-def _in_place(fn, lo: int, hi: int, attrs: dict, *args):
-    """``fn(*args)`` with its new pool leaves (outputs 1..) written into
-    the pool arguments ``args[lo:hi]``, which it returns in their place."""
-    outs = fn(*args, **attrs)
-    pool = args[lo:hi]
-    for dst, src in zip(pool, outs[1:]):
-        if src is not dst:
-            dst.copy_(src)
-    return (outs[0],) + tuple(pool)
-
 
 def baseline_steps(n_params: int, n_cache: int, attrs: dict, device):
     """``serve.slot_decode`` and ``serve.slot_prefill`` called directly,
@@ -339,6 +336,6 @@ def baseline_steps(n_params: int, n_cache: int, attrs: dict, device):
            and not jit_disabled() else None)
     fns = []
     for name in ("serve.slot_decode", "serve.slot_prefill"):
-        fn = functools.partial(_in_place, OPS[name].impl, lo, hi, attrs)
+        fn = functools.partial(in_place, OPS[name].impl, lo, hi, attrs)
         fns.append(fn if ctx is None else ctx.wrap(fn, donate=range(lo, hi)))
     return fns[0], fns[1], ctx

@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import function as terra_function
 from repro_torch.core import ops as ops_mod
 from repro_torch.core.device import resolve_device
-from repro_torch.core.executor import SKELETON, varops
+from repro_torch.core.executor import SKELETON, steady, varops
 from repro_torch.core.ops import op_impl
 from repro_torch.core.pytree import tree_flatten
 from repro_torch.core.tensor import TerraTensor, Variable
@@ -311,9 +311,13 @@ class ContinuousBatchingScheduler:
                     eng.reset_variable(var, leaf)
                 tok = to_numpy(outs[0])
             else:
-                # co-execution: consume the pool Variables' device buffers in
-                # place through a fenced GraphRunner closure (§12); no stall
-                pfn, attrs, es = self._prefill_fn, self._attrs, self.events
+                # co-execution: consume the pool Variables' device buffers
+                # through a fenced GraphRunner closure (§12); no stall.  No
+                # snapshot holds a pool a live steady plan owns: write in place
+                op = ops_mod.OPS["serve.slot_prefill"]
+                pfn = op.inplace if all(steady.donates(eng, v.var_id)
+                                        for v in state_vars) else op.impl
+                attrs, es = self._attrs, self.events
 
                 def splice(bufs):
                     args = bufs + frames

@@ -52,7 +52,7 @@ class Recording:
     def __init__(self):
         self.wrapped, self.eager_fns = [], 0
 
-    def wrap(self, fn, donate=(), host=None):
+    def wrap(self, fn, donate=(), host=None, home=False):
         self.wrapped.append((fn, tuple(donate), host))
 
         def call(*args):
@@ -279,6 +279,75 @@ def test_cuda_captured_program_equals_disable_jit(card):
     st = cap.engine.capture.stats
     assert st["graphs"] > 0 and st["replays"] > 0 and st["eager_fns"] == 0
     assert eager.engine.capture.stats["graphs"] == 0
+    cap.close()
+    eager.close()
+
+
+def _home_step(don, x):
+    """A segment's form: its donated buffer written in place and handed
+    back, and a fetch."""
+    (a,) = don
+    a.mul_(0.5).add_(x)
+    return (a,), a.sum()
+
+
+def steady_program(dev, iters=24):
+    """A steady plan (its twin donates ``w``), walker probes between."""
+    ops = tcore.ops
+    w = tcore.Variable(np.ones(4096, np.float32))
+
+    @tcore.function(device=dev, steady_state=2, steady_probe=5)
+    def step(x):
+        y = ops.mul(x, 2.0)
+        w.assign(ops.add(ops.mul(w.read(), 0.5), y))
+        return y
+
+    out = [_np(step(np.full(4096, 0.01 * (i + 1), np.float32)))
+           for i in range(iters)]
+    step.wait()
+    out.append(_np(step.engine.variable_value(w)))
+    return out, step
+
+
+@pytest.mark.cuda
+def test_cuda_home_buffers_copy_only_a_moved_tensor(card):
+    """A graph wrapped with ``home=True`` copies nothing while the caller
+    hands its home buffer back, copies once (counted in ``copy_in_bytes``
+    and ``home_copies``) when the caller passes a moved tensor, never
+    recaptures, and computes what the eager function does; a steady
+    program, whose twin is wrapped so, equals its ``disable_jit()`` run."""
+    ctx = capture_mod.CaptureContext(card)
+    f = ctx.wrap(_home_step, donate=(0,), home=True)
+    x = torch.linspace(-1, 1, 4096, device=card)
+    a = torch.ones(4096, device=card)
+    want = torch.ones(4096, device=card)
+    st = ctx.stats
+    for i in range(8):
+        if i == 5:
+            a = a.clone()                       # the variable moved
+        before = dict(st)
+        (a,), s = f((a,), x)
+        want = want * 0.5 + x
+        torch.testing.assert_close(a, want, rtol=0, atol=0)
+        torch.testing.assert_close(s, want.sum(), rtol=0, atol=0)
+        if i >= 2:                              # replays
+            moved = 4096 * 4 if i == 5 else 0
+            assert st["copy_in_bytes"] - before["copy_in_bytes"] == moved
+            assert st["home_copies"] - before["home_copies"] == (i == 5)
+    assert st["graphs"] == 1 and st["recaptures"] == 0
+    assert st["replays"] == 7 and st["home_copies"] == 1
+    ctx.release()
+
+    with capture_mod.disable_jit():
+        want, eager = steady_program(card)
+    got, cap = steady_program(card)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-6)
+    cs = cap.engine.capture.stats
+    assert cap.stats["steady_iters"] > 0
+    assert cap.engine.steady_donated_bytes > 0
+    assert cs["recaptures"] == 0 and cs["home_copies"] >= 1
+    assert cap.stats["steady_iters"] == eager.stats["steady_iters"]
     cap.close()
     eager.close()
 

@@ -304,6 +304,72 @@ def test_a_buffer_read_between_its_writer_and_its_donor_is_kept():
 
 
 # --------------------------------------------------------------------------
+# the steady twin (graphgen.steady_twin): iteration-start buffers donated
+# --------------------------------------------------------------------------
+
+def _halve_add(v, x):
+    return v * 0.5 + x, x.sum()
+
+
+def _halve_add_into(v, x):
+    return v.mul_(0.5).add_(x), x.sum()
+
+
+_halve = tops_mod.def_op("test.halve_add", _halve_add,
+                         inplace=_halve_add_into,
+                         writes=lambda **_: ((0, 0),))
+
+
+@pytest.mark.parametrize("other_reader", [False, True],
+                         ids=["sole-reader", "second-reader"])
+def test_steady_twin_writes_in_place_only_for_the_sole_reader(other_reader):
+    """A steady plan's twin donates the variable's iteration-start buffer:
+    the op's in-place form runs when it is the buffer's only reader, else
+    the new value is copied into the buffer after the segment; either way
+    the store keeps one buffer and the values are the walker path's."""
+    ops, v = PORT.ops, PORT.Variable(np.ones(64, np.float32))
+
+    @PORT.function(steady_state=2, steady_probe=1000)
+    def step(x):
+        t = ops.reduce_sum(v.read()) if other_reader else None
+        new, s = _halve(v.read(), x)
+        v.assign(new)
+        return s if t is None else ops.add(s, t)
+
+    want, got, ptrs, w = [], [], [], np.ones(64)
+    for i in range(10):
+        x = np.full(64, 0.25 * (i + 1), np.float32)
+        want.append(x.sum() + (w.sum() if other_reader else 0.0))
+        w = w * 0.5 + x
+        got.append(_np(step(x)))
+        step.wait()
+        ptrs.append(step.engine.store.buffers[v.var_id].data_ptr())
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(_np(step.engine.variable_value(v)), w,
+                               rtol=1e-6)
+    twin = step.engine.family.steady.twin
+    assert twin.don_var_ids == [v.var_id]
+    assert bool(twin.inplace) is not other_reader
+    assert step.stats["steady_iters"] >= 6
+    assert step.stats["donated_bytes"] == 0
+    assert step.engine.steady_donated_bytes == 256 * step.stats[
+        "steady_iters"]
+    assert len(set(ptrs[-6:])) == 1
+    # while the plan is live, the store's buffer is the twin's: a read
+    # hands out a copy, and a rebind keeps a copy of the caller's tensor
+    held = step.engine.variable_value(v)
+    mine = torch.full((64,), 2.0)
+    step.engine.reset_variable(v, mine)
+    step(np.full(64, 1.0, np.float32))
+    step.wait()
+    np.testing.assert_allclose(_np(held), w, rtol=1e-6)
+    assert torch.equal(mine, torch.full((64,), 2.0))
+    np.testing.assert_allclose(_np(step.engine.variable_value(v)),
+                               np.full(64, 2.0))
+    step.close()
+
+
+# --------------------------------------------------------------------------
 # liveness
 # --------------------------------------------------------------------------
 
