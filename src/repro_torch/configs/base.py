@@ -9,13 +9,17 @@ transformer assembly (models/transformer.py).  Kinds:
     attn_local      local self-attention + MLP (RecurrentGemma, window)
     moe             self-attention + MoE FFN
     ssd             Mamba-2 SSD block (attention-free, no separate MLP)
+    ssd_moe         Mamba-2 mixer + MoE FFN (granite-4.0-h's mamba layers)
     rglru           RG-LRU recurrent block + MLP
     cross           cross-attention (vision/encoder states) + MLP
     enc_attn        bidirectional self-attention + MLP (encoders)
     dec_attn_cross  decoder self-attn + cross-attn + MLP (Whisper decoder)
 
-The schema is the reference's field for field, so a port config compares
-equal to its reference counterpart; field comments give the reference's
+The schema is the reference's field for field, plus the port-only fields
+of :data:`PORT_ONLY` (the granite-4.0-h hybrid's departures from the
+llama-family block), each of which defaults to the behaviour every
+reference config has; so a port config's :func:`reference_view` compares
+equal to its reference counterpart.  Field comments give the reference's
 meaning.  The port reads every field (remat policies "full", "dots" and
 "attn_out"; ``moe_impl`` "shard_map" is ``models/moe_ep.py``) but
 ``unroll``, which has no effect: the port runs its loops in Python.
@@ -93,6 +97,22 @@ class ModelConfig:
     # FLOP/byte/collective accounting (launch/dryrun.py).
     unroll: bool = False
 
+    # port-only fields (PORT_ONLY), each at the reference's behaviour by
+    # default: granite-4.0-h's NoPE attention with its own softmax scale
+    # (0 -> head_dim^-1/2), its multipliers on the embedding, on each
+    # residual branch and (dividing) on the logits, the norms' epsilon,
+    # and the Mamba-2 mixer's D skip, gated RMSNorm before the out
+    # projection and conv bias
+    nope: bool = False
+    attn_scale: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    norm_eps: float = 1e-6
+    ssm_d_skip: bool = False
+    ssm_gated_norm: bool = False
+    conv_bias: bool = False
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
@@ -108,6 +128,24 @@ class ModelConfig:
         assert (self.n_layers - len(self.extra_blocks)) % per == 0, \
             f"{self.name}: {self.n_layers} layers not divisible by " \
             f"pattern {self.block_pattern} + extras {self.extra_blocks}"
+
+
+PORT_ONLY = ("nope", "attn_scale", "embedding_multiplier",
+             "residual_multiplier", "logits_scaling", "norm_eps",
+             "ssm_d_skip", "ssm_gated_norm", "conv_bias")
+
+
+def reference_view(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` in the reference's schema: without the
+    port-only fields, after checking that each is at its default (a config
+    that sets one has no reference counterpart: ValueError)."""
+    d = dataclasses.asdict(cfg)
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    off = [k for k in PORT_ONLY if d[k] != defaults[k]]
+    if off:
+        raise ValueError(f"{cfg.name}: port-only fields {off} are set; the "
+                         "reference's schema cannot express them")
+    return {k: v for k, v in d.items() if k not in PORT_ONLY}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,6 +55,11 @@ is a tree of tensors.
   called; a replay does not call them.  A capture records the launches
   its own thread counted (other threads may launch meanwhile), takes
   them back off the counters, and every replay adds them.
+* **Pool copies.**  A pool op's in-place form copies each new pool leaf
+  it could not write in place into its pool input (the recurrent states'
+  write-back, ``serve/scheduler/inplace.py``), and reports the bytes
+  through :func:`count_pool_copy`; a capture records what its own thread
+  reported, and every replay adds it to ``pool_copy_bytes``.
 * **Errors.**  A capture that fails raises; nothing falls back to eager.
   An op that cannot be captured is registered so (``def_op(...,
   capturable=False)``), and a segment or chain holding one is compiled
@@ -137,13 +142,24 @@ def jit_disabled() -> bool:
     return _DISABLED[0] > 0
 
 
+_POOL_COPIES = threading.local()    # .bytes: open in this thread's capture
+
+
+def count_pool_copy(nbytes: int) -> None:
+    """Report ``nbytes`` copied into a pool input inside the function
+    being captured on this thread (nothing is counted outside a capture)."""
+    if getattr(_POOL_COPIES, "bytes", None) is not None:
+        _POOL_COPIES.bytes += nbytes
+
+
 class CaptureContext:
     """One engine's graphs: their shared memory pool, the card's side
     stream that warm-ups and captures run on, and the counters
     ``chip_smoke.py`` reads (graphs captured, replays, recaptures,
     warm-ups, functions compiled eager because they hold an op that
-    cannot be captured, and the bytes copied in and out around
-    replays).  ``events`` is the stream its spans go to."""
+    cannot be captured, the bytes copied in and out around replays, and
+    the bytes replays copy into pool leaves, ``pool_copy_bytes``).
+    ``events`` is the stream its spans go to."""
 
     def __init__(self, device: torch.device,
                  events: Optional[EventStream] = None):
@@ -153,7 +169,8 @@ class CaptureContext:
         self.stream = _side_stream(device)
         self.stats: Dict[str, int] = dict(
             graphs=0, replays=0, recaptures=0, warmups=0, eager_fns=0,
-            copy_in_bytes=0, copy_out_bytes=0, home_copies=0)
+            copy_in_bytes=0, copy_out_bytes=0, home_copies=0,
+            pool_copy_bytes=0)
         self._fns: "weakref.WeakSet[CapturedFn]" = weakref.WeakSet()
 
     def wrap(self, fn: Callable, donate: Sequence[int] = (),
@@ -198,7 +215,7 @@ class _Graph:
 
     __slots__ = ("graph", "static", "ptrs", "homes", "outs", "out_def",
                  "delta", "copy_in", "copy_back", "copy_out", "in_bytes",
-                 "out_bytes", "__weakref__")
+                 "out_bytes", "pool_bytes", "__weakref__")
 
 
 class _Entry:
@@ -314,10 +331,14 @@ class CapturedFn:
         weakref.finalize(g, _RETIRED.append, graph)
         with _CAPTURING:
             _bury()
-            with recording_launches() as rec, torch.cuda.graph(
-                    graph, pool=ctx.pool, stream=ctx.stream,
-                    capture_error_mode="thread_local"):
-                out = self.fn(*static_args)
+            _POOL_COPIES.bytes = 0
+            try:
+                with recording_launches() as rec, torch.cuda.graph(
+                        graph, pool=ctx.pool, stream=ctx.stream,
+                        capture_error_mode="thread_local"):
+                    out = self.fn(*static_args)
+            finally:
+                g.pool_bytes, _POOL_COPIES.bytes = _POOL_COPIES.bytes, None
         g.delta = [rec.get(f, 0) for f in _COUNTED]
         for f, d in zip(_COUNTED, g.delta):
             f.launches -= d                 # recorded, not launched yet
@@ -382,6 +403,7 @@ class CapturedFn:
         stats["replays"] += 1
         stats["copy_in_bytes"] += in_bytes
         stats["copy_out_bytes"] += g.out_bytes
+        stats["pool_copy_bytes"] += g.pool_bytes
         res, it = [], iter(fresh)
         for kind, v in g.outs:
             if kind == "const":

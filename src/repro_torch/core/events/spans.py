@@ -13,6 +13,13 @@ current stream (never while that stream is being captured into a CUDA
 graph).  A site that computes an id only when spans record reads the span
 as a bool: ``NO_SPAN`` is false.
 
+A span opened with ``subs=True`` (the scheduler's ``step.prefill``) asks
+for the sub-spans of the code it covers: while it is open on a thread,
+:func:`sub_span` there opens a device-timed span nested in it, on its
+recorder; elsewhere :func:`sub_span` returns :data:`NO_SPAN` after one
+attribute check.  The model's layers open them (``step.prefill.mixer``,
+``.attention``, ``.moe``) without a stream of their own.
+
 Spans go to the recorder only, never through ``emit``: the structured
 event stream stays what it is without them.
 """
@@ -29,6 +36,7 @@ import torch
 # (an engine's spans nest in its scheduler's on one thread)
 _IDS = itertools.count(1)
 _OPEN = threading.local()           # .stack: this thread's open spans
+_SUBS = threading.local()           # .span: the open span asking for subs
 
 
 class _NoSpan:
@@ -68,11 +76,13 @@ class Span:
 
     __slots__ = ("name", "id", "parent", "thread", "thread_name", "ids",
                  "t0_ns", "t1_ns", "device_ms", "device_t0_ns", "_rec",
-                 "_device", "_ev")
+                 "_device", "_ev", "_subs", "_outer")
 
-    def __init__(self, rec, name: str, device: bool, ids: dict):
+    def __init__(self, rec, name: str, device: bool, ids: dict,
+                 subs: bool = False):
         self._rec, self.name, self._device, self.ids = rec, name, device, ids
         self.device_ms = self.device_t0_ns = self._ev = None
+        self._subs, self._outer = subs, None
 
     def __enter__(self):
         try:
@@ -84,6 +94,9 @@ class Span:
         t = threading.current_thread()
         self.thread, self.thread_name = t.ident, t.name
         stack.append(self)
+        if self._subs:
+            self._outer = getattr(_SUBS, "span", None)
+            _SUBS.span = self
         if self._device:
             self._ev = _timing_event()
         self.t0_ns = time.time_ns()
@@ -95,5 +108,16 @@ class Span:
             end = _timing_event()
             self._ev = (self._ev, end) if end is not None else None
         _OPEN.stack.pop()
+        if self._subs:
+            _SUBS.span = self._outer
         self._rec.record(self)
         return False
+
+
+def sub_span(name: str):
+    """A device-timed span ``name`` inside the ``subs=True`` span open on
+    this thread (on its recorder), or :data:`NO_SPAN` when there is none."""
+    outer = getattr(_SUBS, "span", None)
+    if outer is None:
+        return NO_SPAN
+    return Span(outer._rec, name, True, {})

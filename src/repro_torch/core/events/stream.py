@@ -106,13 +106,16 @@ class EventStream:
         e.g. ``repro_torch.obs.SpanRecorder``); ``None`` turns them off."""
         self._spans = recorder
 
-    def span(self, name: str, device: bool = False, **ids):
+    def span(self, name: str, device: bool = False, subs: bool = False,
+             **ids):
         """A context timing one interval named ``<layer>.<what>``;
-        ``device=True`` also times it on the card's current stream."""
+        ``device=True`` also times it on the card's current stream;
+        ``subs=True`` lets the code it covers open sub-spans
+        (``spans.sub_span``)."""
         rec = self._spans
         if rec is None:
             return NO_SPAN
-        return Span(rec, name, device, ids)
+        return Span(rec, name, device, ids, subs)
 
     # ------------------------------------------------------------------
     # the injected clock

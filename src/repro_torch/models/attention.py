@@ -169,6 +169,8 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
     When ``cross_states`` [B, Skv, d] is given, k/v come from those
     encoder / vision states: no rope, no cache read or write, no causal
     mask (the reference re-projects them at every decode step).
+    ``cfg.nope``: no rotary positions; ``cfg.attn_scale`` (when set and
+    not D^-1/2): the softmax scale, folded into q.
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -181,7 +183,10 @@ def attention_block(p, x, cfg, *, positions=None, cache=None,
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    if use_rope and cross_states is None:
+    if cfg.attn_scale and cfg.attn_scale != D ** -0.5:
+        # every path below scales scores by D^-1/2: fold the ratio into q
+        q = q * (cfg.attn_scale * D ** 0.5)
+    if use_rope and not cfg.nope and cross_states is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, torch.arange(Skv, device=x.device)[None, :]
                  if cache is None else positions, cfg.rope_theta)

@@ -13,7 +13,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_leaves
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.parallel.sharding import constrain
 
@@ -45,7 +44,8 @@ def active_param_count(cfg: ModelConfig) -> int:
         return total
     f = cfg.moe_d_ff or cfg.d_ff
     per_expert = 3 * cfg.d_model * f
-    n_blocks = cfg.n_pattern_blocks * cfg.block_pattern.count("moe")
+    n_blocks = cfg.n_pattern_blocks * sum(
+        cfg.block_pattern.count(k) for k in ("moe", "ssd_moe"))
     inactive = n_blocks * (cfg.n_experts - cfg.top_k) * per_expert
     return total - inactive
 
@@ -68,7 +68,7 @@ def _slot_cache(cfg, kind: str, nb: Optional[int], batch: int, max_len: int,
         shp = (nb,) + s if nb is not None else s
         return torch.zeros(shp, dtype=dtype, device=device)
 
-    if kind == "ssd":
+    if kind in T.SSD_KINDS:
         H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         dc = H * P + 2 * N                      # conv runs over (x, B, C)
         # recurrent state kept in f32 for numerical stability
@@ -109,13 +109,13 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, *,
     B, S = tokens.shape
     dev = tokens.device
     cache = init_cache(cfg, B, max_len, dev)
-    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    x = T.embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=dev)[None]
     x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache,
                            cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x[:, -1:])
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return constrain(L.unembed(x[:, 0], head), "batch", "vocab"), cache
+    return constrain(T.head_logits(cfg, params, x[:, 0]), "batch",
+                     "vocab"), cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, *,
@@ -123,13 +123,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
     """One decode step: tokens [B, 1] -> (logits [B, vocab], new cache).
     ``cross_states``: the VLM's vision states or Whisper's encoder states
     (``T.encode``), re-projected by every cross-attention."""
-    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    x = T.embed_tokens(cfg, params, tokens)
     positions = cache["len"] + torch.arange(1, device=x.device)[None]
     x, cache = T.run_stack(cfg, params, x, positions=positions, caches=cache,
                            cross_states=cross_states)
     x = T._norm(cfg, params["final_norm"], x)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return constrain(L.unembed(x[:, 0], head), "batch", "vocab"), cache
+    return constrain(T.head_logits(cfg, params, x[:, 0]), "batch",
+                     "vocab"), cache
 
 
 forward = T.forward

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.ops import promoted
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import dense, rms_norm
 from repro_torch.parallel.sharding import is_dtensor
 
 # torch.einsum with jnp's promotion (torch refuses mixed dtypes)
@@ -220,12 +220,16 @@ def _ssd_decode_math(state, x, dt, A, Bm, Cm):
 # Full Mamba-2 block (projections + conv + SSD + gate)
 # --------------------------------------------------------------------------
 
-def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes):
+def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes, b_conv=None,
+         lengths=None):
     """Between mamba2_block's projections: the split into (z gate, x, B,
     C, dt heads), dt = softplus(dt + dt_bias) and the depthwise causal
-    conv over (x, B, C) as in Mamba-2, after the window ``conv_state``
-    [B, K-1, dc] (zeros when None).  Returns (z, dt, silu(conv), the new
-    window: the last K-1 rows, or None without a state)."""
+    conv over (x, B, C) as in Mamba-2 (plus ``b_conv`` when given), after
+    the window ``conv_state`` [B, K-1, dc] (zeros when None).  Returns
+    (z, dt, silu(conv), the new window: the last K-1 rows, or None without
+    a state).  ``lengths`` [B] (a padded prefill): row b's window is its
+    last K-1 real rows, and its dt is 0 from position ``lengths[b]`` on,
+    so the scan's decay there is 1 and its update 0."""
     z, xin, Bm, Cm, dt = torch.split(zxbcdt, sizes, dim=-1)
     dt = F.softplus(dt + dt_bias)                                # [B,S,H]
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)                   # [B,S,dc]
@@ -238,18 +242,37 @@ def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes):
         ci = torch.cat([pad, conv_in], dim=1)
     else:
         ci = torch.cat([conv_state, conv_in], dim=1)
-        new_conv_state = ci[:, -(K - 1):]
+        if lengths is None:
+            new_conv_state = ci[:, -(K - 1):]
+        else:
+            # real token t sits at row t + K - 1 of ci
+            rows = lengths.long()[:, None] + torch.arange(
+                K - 1, device=ci.device)
+            new_conv_state = torch.gather(
+                ci, 1, rows[..., None].expand(-1, -1, dc))
+    if lengths is not None:
+        real = torch.arange(S, device=dt.device) < lengths.long()[:, None]
+        dt = dt * real[..., None].to(dt.dtype)
     win = torch.stack([ci[:, i:i + S] for i in range(K)], dim=-1)  # [B,S,dc,K]
-    conv_out = F.silu(_einsum("bsdk,dk->bsd", win, w_conv))
+    conv = _einsum("bsdk,dk->bsd", win, w_conv)
+    if b_conv is not None:
+        conv = conv + b_conv
+    conv_out = F.silu(conv)
     return z, dt, conv_out, new_conv_state
 
 
-def mamba2_block(p, x, cfg, *, cache=None):
+def mamba2_block(p, x, cfg, *, cache=None, lengths=None):
     """x: [B, S, d].  cache: None or dict(conv [B,K-1,dc], ssm [B,H,P,N]).
 
     Projections follow Mamba-2: in_proj -> (z gate, x, B, C, dt heads).
     A prefill with a cache starts from a zero state, as the reference's
-    does; its conv reads the cache's conv window.
+    does; its conv reads the cache's conv window.  ``lengths`` [B] (a
+    prefill padded past each row's length): the new state and conv window
+    are those at each row's last real token (:func:`_mix`).  The config's
+    ``conv_bias`` (``b_conv``), ``ssm_d_skip`` (``y += x * d_skip``, per
+    head) and ``ssm_gated_norm`` (``rmsnorm(y * silu(z))`` in float32,
+    scale ``norm.scale``, in place of ``y * silu(z)``) are Mamba-2's
+    layer options.
     """
     B, S, d = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -257,17 +280,19 @@ def mamba2_block(p, x, cfg, *, cache=None):
 
     zxbcdt = dense(x, p["w_in"])            # [B,S, 2*d_inner + 2*N + H]
     sizes = [d_inner, d_inner, N, N, H]
+    b_conv = p["b_conv"] if cfg.conv_bias else None
     if cache is not None and is_dtensor(cache["conv"]):
         # a cache under a mesh: its conv window is sharded over the model
         # axis on its width, and DTensor's cat, stack and einsum over that
         # layout fail on some torch versions
         z, dt, conv_out, new_conv_state = _on_rows(
             _mix, zxbcdt, p["dt_bias"], p["w_conv"], cache["conv"], sizes,
-            replicated=(2,))
+            b_conv, lengths, replicated=(2,))
     else:
         z, dt, conv_out, new_conv_state = _mix(
             zxbcdt, p["dt_bias"], p["w_conv"],
-            None if cache is None else cache["conv"], sizes)
+            None if cache is None else cache["conv"], sizes, b_conv,
+            lengths)
     xc, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
     xc = xc.reshape(B, S, H, P)
 
@@ -284,8 +309,15 @@ def mamba2_block(p, x, cfg, *, cache=None):
             cache["ssm"], xc[:, 0], dt[:, 0], A, Bc[:, 0], Cc[:, 0])
         y = y1[:, None]
 
+    if cfg.ssm_d_skip:
+        y = (y.float() + xc.float() * p["d_skip"].float()[:, None]
+             ).to(y.dtype)
     y = y.reshape(B, S, d_inner)
-    y = y * F.silu(z)
+    if cfg.ssm_gated_norm:
+        y = rms_norm(y.float() * F.silu(z.float()), p["norm"]["scale"],
+                     cfg.norm_eps).to(y.dtype)
+    else:
+        y = y * F.silu(z)
     out = dense(y, p["w_out"])
     if cache is not None:
         return out, {"conv": new_conv_state, "ssm": new_ssm_state}

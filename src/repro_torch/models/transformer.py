@@ -8,7 +8,8 @@ for leaf.  The reference scans over that axis with ``jax.lax.scan``; here
 a Python loop indexes it.
 
 Block kinds: the ``attn`` kinds (llama-family), ``moe`` (Mixtral,
-DeepSeek-MoE), ``ssd`` (Mamba-2), ``rglru`` (RecurrentGemma), ``cross``
+DeepSeek-MoE), ``ssd`` (Mamba-2), ``ssd_moe`` (a Mamba-2 mixer and an MoE
+FFN: granite-4.0-h), ``rglru`` (RecurrentGemma), ``cross``
 (the VLM's gated cross-attention), ``dec_attn_cross`` (Whisper's decoder)
 and ``enc_attn`` (Whisper's bidirectional encoder, :func:`encode`).
 
@@ -33,6 +34,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.events.spans import sub_span
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_block,
@@ -44,7 +46,8 @@ from repro_torch.models.ssm import mamba2_block
 from repro_torch.parallel.sharding import constrain
 
 ATTN_KINDS = ("attn", "attn_swa", "attn_local", "moe", "enc_attn")
-KINDS = ATTN_KINDS + ("ssd", "rglru", "cross", "dec_attn_cross")
+SSD_KINDS = ("ssd", "ssd_moe")      # a Mamba-2 mixer; ssd_moe + MoE FFN
+KINDS = ATTN_KINDS + SSD_KINDS + ("rglru", "cross", "dec_attn_cross")
 
 
 def _check_kinds(cfg) -> None:
@@ -111,7 +114,7 @@ def _ssd_params(cfg, gen, stack):
     d_inner = H * P
     dc = d_inner + 2 * N
     dt = _dt(cfg)
-    return {
+    p = {
         "w_in": L.he_init(gen, (d, 2 * d_inner + 2 * N + H), dt, stack),
         "w_conv": L.trunc_normal(gen, tuple(stack) + (dc, K), dt, 0.1),
         "dt_bias": torch.zeros(tuple(stack) + (H,), dtype=dt,
@@ -121,6 +124,17 @@ def _ssd_params(cfg, gen, stack):
                              device=gen.device),
         "w_out": L.he_init(gen, (d_inner, d), dt, stack),
     }
+    # Mamba-2's layer options (the config's port-only fields)
+    if cfg.conv_bias:
+        p["b_conv"] = torch.zeros(tuple(stack) + (dc,), dtype=dt,
+                                  device=gen.device)
+    if cfg.ssm_d_skip:
+        p["d_skip"] = torch.ones(tuple(stack) + (H,), dtype=dt,
+                                 device=gen.device)
+    if cfg.ssm_gated_norm:
+        p["norm"] = {"scale": torch.zeros(tuple(stack) + (d_inner,),
+                                          dtype=dt, device=gen.device)}
+    return p
 
 
 def _rglru_params(cfg, gen, stack):
@@ -156,8 +170,12 @@ def _block_params(cfg, gen, kind: str, stack=()):
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     p = {"norm1": _norm_params(cfg, gen.device, stack)}
-    if kind == "ssd":               # attention-free: no norm2, no MLP
+    if kind in SSD_KINDS:
         p["ssd"] = _ssd_params(cfg, gen, stack)
+        if kind == "ssd":           # attention-free: no norm2, no MLP
+            return p
+        p["norm2"] = _norm_params(cfg, gen.device, stack)
+        p["moe"] = _moe_params(cfg, gen, stack)
         return p
     if kind == "rglru":
         p["rglru"] = _rglru_params(cfg, gen, stack)
@@ -234,7 +252,7 @@ def _norm(cfg, p, x):
     x = constrain(x, "batch", *(None,) * (x.ndim - 1))
     if cfg.norm == "ln":
         return L.layer_norm(x, p["scale"], p["bias"])
-    return L.rms_norm(x, p["scale"])
+    return L.rms_norm(x, p["scale"], cfg.norm_eps)
 
 
 def _with_len(cache, cache_len, cache_bt):
@@ -253,7 +271,7 @@ def _strip_len(cache):
 
 def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
                   cache_len=None, cache_bt=None, cross_states=None,
-                  causal=True, split_remat=False):
+                  causal=True, split_remat=False, lengths=None):
     """One block of kind ``kind``.  Returns (x, new_cache).
 
     Attention caches are stored per layer as {"k","v"} (dense rows) or
@@ -265,6 +283,10 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
     ``dec_attn_cross``'s cross-attention reads ``cross_states``.
     ``split_remat`` (remat policy ``"attn_out"``, no cache): an attention
     kind runs as two checkpoint regions, any other kind as one.
+    ``lengths`` [B] (a prefill padded past each row's length, SSD kinds
+    only): see ``ssm.mamba2_block``.  Inside a span that asked for its
+    sub-spans (the scheduler's ``step.prefill``), each mixer, attention
+    and MoE sub-layer is a device-timed ``step.prefill.<part>`` span.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
@@ -273,33 +295,40 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
                                positions=positions,
                                cross_states=cross_states, causal=causal,
                                use_reentrant=False)
-    if kind == "ssd":
-        h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
-                                    cfg, cache=cache)
-        return x + h, new_cache
+    if kind in SSD_KINDS:
+        with sub_span("step.prefill.mixer"):
+            h, new_cache = mamba2_block(p["ssd"], _norm(cfg, p["norm1"], x),
+                                        cfg, cache=cache, lengths=lengths)
+        x = _residual(cfg, x, h)
+        if kind == "ssd_moe":
+            x = _ffn_half(cfg, "moe", p, x)
+        return x, new_cache
     if kind == "rglru":
         h, new_cache = rglru_block(p["rglru"], _norm(cfg, p["norm1"], x),
                                    cfg, cache=cache)
-        x = x + h
-        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
+        x = _residual(cfg, x, h)
+        x = _residual(cfg, x, L.mlp_swiglu(p["mlp"],
+                                           _norm(cfg, p["norm2"], x)))
         return x, new_cache
     if kind == "cross":
         h, _ = attention_block(p["cross"], _norm(cfg, p["norm1"], x), cfg,
                                positions=positions,
                                cross_states=cross_states)
-        x = x + torch.tanh(p["gate"]) * h
-        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm2"], x))
+        x = _residual(cfg, x, torch.tanh(p["gate"]) * h)
+        x = _residual(cfg, x, L.mlp_swiglu(p["mlp"],
+                                           _norm(cfg, p["norm2"], x)))
         return x, cache             # cross caches are static
     if kind == "dec_attn_cross":
         h, new_cache = attention_block(
             p["attn"], _norm(cfg, p["norm1"], x), cfg, positions=positions,
             cache=_with_len(cache, cache_len, cache_bt), causal=True)
-        x = x + h
+        x = _residual(cfg, x, h)
         h, _ = attention_block(p["cross"], _norm(cfg, p["norm2"], x), cfg,
                                positions=positions,
                                cross_states=cross_states)
-        x = x + h
-        x = x + L.mlp_swiglu(p["mlp"], _norm(cfg, p["norm3"], x))
+        x = _residual(cfg, x, h)
+        x = _residual(cfg, x, L.mlp_swiglu(p["mlp"],
+                                           _norm(cfg, p["norm3"], x)))
         return x, _strip_len(new_cache)
     if split_remat:
         # remat policy "attn_out": the attention sub-layer and the FFN are
@@ -307,12 +336,22 @@ def block_forward(cfg, kind: str, p, x, *, positions, cache=None,
         # output are kept and everything else (the FFN too) is recomputed
         h = ckpt.checkpoint(_attention_half, cfg, kind, p, x, positions,
                             causal, use_reentrant=False)[0]
-        return ckpt.checkpoint(_ffn_half, cfg, kind, p, x + h,
+        return ckpt.checkpoint(_ffn_half, cfg, kind, p,
+                               _residual(cfg, x, h),
                                use_reentrant=False), None
-    h, new_cache = _attention_half(cfg, kind, p, x, positions, causal,
-                                   cache=_with_len(cache, cache_len,
-                                                   cache_bt))
-    return _ffn_half(cfg, kind, p, x + h), _strip_len(new_cache)
+    with sub_span("step.prefill.attention"):
+        h, new_cache = _attention_half(cfg, kind, p, x, positions, causal,
+                                       cache=_with_len(cache, cache_len,
+                                                       cache_bt))
+    return _ffn_half(cfg, kind, p, _residual(cfg, x, h)), \
+        _strip_len(new_cache)
+
+
+def _residual(cfg, x, h):
+    """``x + h``, the branch scaled by ``cfg.residual_multiplier``."""
+    if cfg.residual_multiplier != 1.0:
+        h = h * cfg.residual_multiplier
+    return x + h
 
 
 def _attention_half(cfg, kind, p, x, positions, causal, cache=None):
@@ -331,15 +370,16 @@ def _ffn_half(cfg, kind, p, x):
     """The FFN sub-layer (dense, or MoE) with its residual."""
     ff_in = _norm(cfg, p["norm2"], x)
     if kind == "moe":
-        if cfg.moe_impl == "shard_map":
-            return x + moe_block_ep(p["moe"], ff_in, cfg)
-        return x + moe_block(p["moe"], ff_in, cfg)
-    return x + L.mlp_swiglu(p["mlp"], ff_in)
+        with sub_span("step.prefill.moe"):
+            if cfg.moe_impl == "shard_map":
+                return _residual(cfg, x, moe_block_ep(p["moe"], ff_in, cfg))
+            return _residual(cfg, x, moe_block(p["moe"], ff_in, cfg))
+    return _residual(cfg, x, L.mlp_swiglu(p["mlp"], ff_in))
 
 
 def _superblock(cfg, slot_params, x, *, positions, caches=None,
                 cache_len=None, cache_bt=None, cross_states=None,
-                split_remat=False):
+                split_remat=False, lengths=None):
     """Apply one instance of the block pattern.  slot_params/caches are
     per-slot lists (already sliced to this super-block)."""
     new_caches = []
@@ -349,7 +389,7 @@ def _superblock(cfg, slot_params, x, *, positions, caches=None,
                               positions=positions, cache=c,
                               cache_len=cache_len, cache_bt=cache_bt,
                               cross_states=cross_states,
-                              split_remat=split_remat)
+                              split_remat=split_remat, lengths=lengths)
         new_caches.append(nc)
     return x, new_caches
 
@@ -398,9 +438,12 @@ def _restack(base, *zs):
     return torch.stack(zs)
 
 
-def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
+def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None,
+              lengths=None):
     """Loop over super-blocks (+ extra blocks).  Returns (x, new_caches);
-    per-layer cache outputs are re-stacked along the leading axis."""
+    per-layer cache outputs are re-stacked along the leading axis.
+    ``lengths``: each row's prompt length in a padded SSD prefill."""
+    kw = {} if lengths is None else {"lengths": lengths}
     x = constrain(x, "batch", None, None)
     cache_len = caches["len"] if caches is not None else None
     cache_bt = caches.get("bt") if caches is not None else None
@@ -413,7 +456,7 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
                                             (params["blocks"], scanned))
         x, y = body(cfg, slot_params, x, positions=positions,
                     caches=slot_caches, cache_len=cache_len,
-                    cache_bt=cache_bt, cross_states=cross_states)
+                    cache_bt=cache_bt, cross_states=cross_states, **kw)
         ys.append(y)
     if caches is None:
         new_layer_caches = None
@@ -428,7 +471,7 @@ def run_stack(cfg, params, x, *, positions, caches=None, cross_states=None):
         x, nc = block_forward(cfg, kind, params["extra"][i], x,
                               positions=positions, cache=c,
                               cache_len=cache_len, cache_bt=cache_bt,
-                              cross_states=cross_states)
+                              cross_states=cross_states, **kw)
         new_extra.append(nc)
 
     new_caches = None
@@ -464,10 +507,28 @@ def forward(cfg: ModelConfig, params, tokens, *, cross_states=None,
     ``frontend_embeds`` [B, T, d] are encoded first (:func:`encode`)."""
     if cfg.enc_layers and frontend_embeds is not None:
         cross_states = encode(cfg, params, frontend_embeds)
-    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
     x, _ = run_stack(cfg, params, x, positions=positions,
                      cross_states=cross_states)
     x = _norm(cfg, params["final_norm"], x)
+    return constrain(head_logits(cfg, params, x), "batch", None, "vocab")
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    """Token embeddings in ``cfg.dtype``, times the config's
+    ``embedding_multiplier``."""
+    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
+
+
+def head_logits(cfg: ModelConfig, params, x):
+    """The output head (tied or not) over ``x``, divided by the config's
+    ``logits_scaling``."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return constrain(L.unembed(x, head), "batch", None, "vocab")
+    y = L.unembed(x, head)
+    if cfg.logits_scaling != 1.0:
+        y = y / cfg.logits_scaling
+    return y

@@ -65,6 +65,10 @@ this package consumes them:
   ``capture.record``          capturing (or recapturing) a graph
   ``step.prefill``            the prefill step's launches (``rids``,
                               ``tokens``; device-timed)
+  ``step.prefill.mixer``      inside ``step.prefill``: one Mamba-2
+                              mixer sub-layer (device-timed)
+  ``step.prefill.attention``  one attention sub-layer (device-timed)
+  ``step.prefill.moe``        one MoE FFN sub-layer (device-timed)
   ==========================  =========================================
 
   ``chrome_trace(events, spans)`` draws them beside the events.

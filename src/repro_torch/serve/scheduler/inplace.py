@@ -12,6 +12,7 @@ baseline's steps write their donated pool through :func:`in_place` too.
 
 from __future__ import annotations
 
+from repro_torch.core.capture import count_pool_copy
 from repro_torch.models import attention as A
 
 
@@ -35,10 +36,12 @@ def in_place_form(impl):
 def in_place(fn, lo: int, hi: int, attrs: dict, *args):
     """``fn(*args)`` with its new pool leaves (outputs 1..) written into
     the pool arguments ``args[lo:hi]``, which it returns in their place
-    (a leaf ``fn`` wrote in place is not copied)."""
+    (a leaf ``fn`` wrote in place is not copied; the bytes of those that
+    are go to ``capture.count_pool_copy``)."""
     outs = fn(*args, **attrs)
     pool = args[lo:hi]
     for dst, src in zip(pool, outs[1:]):
         if src.data_ptr() != dst.data_ptr() or src.stride() != dst.stride():
             dst.copy_(src)
+            count_pool_copy(dst.nbytes)
     return (outs[0],) + tuple(pool)

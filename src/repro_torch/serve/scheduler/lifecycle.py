@@ -27,7 +27,9 @@ def bucket_len(cfg, length: int, max_len: int, floor: int = 8) -> int:
     """Length bucket a prompt prefills at.  Attention-only stacks pad to
     the next power-of-two cell (bounding prefill compile variants to
     O(log max_len)); recurrent stacks fold *every* position into their
-    state, so padding would corrupt it — they prefill at exact length."""
+    state, so padding would corrupt it — they prefill at exact length,
+    but for those whose prefill masks each row at its length
+    (``pool_ops.MASKED_KINDS``), which pad as attention stacks do."""
     if not pads_allowed(cfg):
         return length
     return min(bucket_pow2(length, floor), max_len)

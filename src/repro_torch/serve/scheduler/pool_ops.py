@@ -54,7 +54,6 @@ from repro_torch.core.ops import OPS, _uniform01, def_op
 from repro_torch.core.pytree import (tree_flatten, tree_leaves, tree_map,
                                      tree_unflatten)
 from repro_torch.models import attention as A
-from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.serve.meta import MetaRegistry
@@ -64,9 +63,14 @@ from repro_torch.serve.scheduler.inplace import (in_place, in_place_form,
 # kinds whose cache reads tolerate right-padding (garbage entries beyond
 # the valid length are masked out by the attention valid-length mask);
 # recurrent kinds fold every position into their state, so their prompts
-# must be admitted at exact length (no padding)
+# are admitted at exact length (no padding), but for MASKED_KINDS: their
+# prefill takes each row's length (``lengths``: dt zeroed and the conv
+# window read at it), so padding leaves the state at the last real token.
+# ``ssd`` could too; it keeps the reference scheduler's exact-length
+# admission, which the port's serving tests hold it to
 PAD_SAFE_KINDS = ("attn", "attn_swa", "attn_local", "moe")
-RECURRENT_KINDS = ("ssd", "rglru")
+RECURRENT_KINDS = T.SSD_KINDS + ("rglru",)
+MASKED_KINDS = ("ssd_moe",)
 
 
 def check_supported(cfg) -> None:
@@ -85,7 +89,7 @@ def check_supported(cfg) -> None:
 def pads_allowed(cfg) -> bool:
     """True when prompts may be right-padded to their length bucket."""
     kinds = tuple(cfg.block_pattern) + tuple(cfg.extra_blocks)
-    return all(k in PAD_SAFE_KINDS for k in kinds)
+    return all(k in PAD_SAFE_KINDS + MASKED_KINDS for k in kinds)
 
 
 def build_pool_cache(cfg, max_slots: int, max_len: int, page_size: int = 0,
@@ -187,11 +191,6 @@ def _sample(logits, temperature: float, rng):
     return tok.to(torch.int32)
 
 
-def _head_logits(cfg, params, x2d):
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(x2d, head)
-
-
 def _pool_prefill(meta: PoolMeta, params, cache_leaves, pos, tokf, tokens,
                   slots, lengths, bt_rows, rng):
     """tokens [b, S] (padded to the bucket), slots/lengths [b] int32 ->
@@ -202,13 +201,15 @@ def _pool_prefill(meta: PoolMeta, params, cache_leaves, pos, tokf, tokens,
     # batch-local cache at the pool's max_len: the same math as the
     # lock-step prefill (same shapes through run_stack), scattered whole-row
     fresh = M.init_cache(cfg, B, meta.max_len, dev)
-    x = L.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    x = T.embed_tokens(cfg, params, tokens)
+    # a padded recurrent prefill keeps each row's state at its own length
     x, fresh = T.run_stack(cfg, params, x,
                            positions=torch.arange(S, device=dev)[None],
-                           caches=fresh)
+                           caches=fresh,
+                           lengths=lengths if pads_allowed(cfg) else None)
     x = T._norm(cfg, params["final_norm"], x)                  # [b, S, d]
     last = x[torch.arange(B, device=dev), lengths.long() - 1]  # [b, d]
-    tok = _sample(_head_logits(cfg, params, last), meta.temperature, rng)
+    tok = _sample(T.head_logits(cfg, params, last), meta.temperature, rng)
 
     bs = meta.page_size
     slots = slots.long()
@@ -255,11 +256,12 @@ def _pool_decode(meta: PoolMeta, params, cache_leaves, pos, tokf,
               "len": pos}
     if bt is not None:
         caches["bt"] = bt
-    x = L.embed(params["embed"], tokf).to(getattr(torch, cfg.dtype))
+    x = T.embed_tokens(cfg, params, tokf)
     x, new_caches = T.run_stack(cfg, params, x, positions=pos[:, None],
                                 caches=caches)
     x = T._norm(cfg, params["final_norm"], x)
-    tok = _sample(_head_logits(cfg, params, x[:, 0]), meta.temperature, rng)
+    tok = _sample(T.head_logits(cfg, params, x[:, 0]), meta.temperature,
+                  rng)
     mask = mask.to(torch.bool)
     tok = torch.where(mask, tok, 0)[:, None]
     new_pos = pos + mask.to(pos.dtype)

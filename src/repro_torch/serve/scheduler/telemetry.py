@@ -94,8 +94,10 @@ def prefill_admitted(sch, plan, sp) -> int:
 
 def prefill_span(es: EventStream, plan, tokens: int):
     """The device-timed ``step.prefill`` span around one prefill's
-    launches, naming its rows' requests and real prompt tokens."""
-    sp = es.span("step.prefill", device=True)
+    launches, naming its rows' requests and real prompt tokens; the
+    model's sub-layers are device-timed spans inside it
+    (``step.prefill.mixer``, ``.attention``, ``.moe``)."""
+    sp = es.span("step.prefill", device=True, subs=True)
     if sp:
         sp.ids.update(rids=[r.rid for r in plan.requests], tokens=tokens)
     return sp

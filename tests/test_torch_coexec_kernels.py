@@ -33,6 +33,7 @@ import repro_torch.core as tcore  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
+from repro_torch.configs.base import reference_view  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,7 +66,7 @@ def model():
     replace = dict(n_layers=N_LAYERS, dtype="float32", param_dtype="float32")
     jcfg = dataclasses.replace(j_smoke("llama3-8b"), **replace)
     tcfg = dataclasses.replace(t_smoke("llama3-8b"), **replace)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == reference_view(tcfg)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, tcfg, jparams, tparams

@@ -25,6 +25,7 @@ from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
+from repro_torch.configs.base import reference_view  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -74,9 +75,11 @@ def test_registry_carries_the_decoder_archs():
         ["llama3-8b", "mamba2-130m"] + NEW_ARCHS
         + ["whisper-small", "llama-3.2-vision-90b"]) == sorted(J_ARCHS)
     for name in ARCHS:
-        assert dataclasses.asdict(get_config(name)) == \
+        # the reference's fields equal, each port-only field at its
+        # default (reference_view raises otherwise)
+        assert reference_view(get_config(name)) == \
             dataclasses.asdict(jg(name))
-        assert dataclasses.asdict(t_smoke(name)) == \
+        assert reference_view(t_smoke(name)) == \
             dataclasses.asdict(j_smoke(name))
     assert get_config("whisper-small").enc_layers == 12
     assert "cross" in get_config("llama-3.2-vision-90b").block_pattern

@@ -30,6 +30,7 @@ from repro.train import train_step as jts  # noqa: E402
 from repro.train.trainer import Trainer as JTrainer  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.base import reference_view  # noqa: E402
 from repro_torch.core.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
@@ -472,13 +473,13 @@ def test_100m_preset_copies_equal_train_lm():
     smoke = _load(os.path.join(ROOT, "chip_smoke.py"), "chip_smoke_copy")
     want = ref.PRESETS["100m"]
     copy = smoke.TRAIN_100M
-    assert dataclasses.asdict(ModelConfig(**copy["cfg"])) == \
+    assert reference_view(ModelConfig(**copy["cfg"])) == \
         dataclasses.asdict(want["cfg"])
     assert (copy["batch"], copy["seq_len"]) == (want["batch"],
                                                  want["seq_len"])
     for name, p in ref.PRESETS.items():
         q = port.PRESETS[name]
-        assert dataclasses.asdict(q["cfg"]) == dataclasses.asdict(p["cfg"])
+        assert reference_view(q["cfg"]) == dataclasses.asdict(p["cfg"])
         assert (q["batch"], q["seq_len"]) == (p["batch"], p["seq_len"])
 
 
