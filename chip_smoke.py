@@ -10,8 +10,9 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build    — compile every hand-written kernel (paged attention, rmsnorm,
-              flash attention, SSD scan) from this checkout's sources (one
-              nvcc per source, all at once, sm_90a) and print the card.
+              flash attention, SSD scan, causal conv) from this checkout's
+              sources (one nvcc per source, all at once, sm_90a) and print
+              the card.
 2. kernels  — each kernel against its plain PyTorch version on the card,
               over a sweep of shapes (``kernels/ref.py``'s sweeps, shared
               with the tests) and at its main path's own shape, with its
@@ -40,6 +41,16 @@ Phases, in order; any failure exits non-zero and prints no result:
               bound, SDPA time and plain time.  The build
               log's registers and spills per kernel (every rmsnorm and
               SSD kernel, paged and flash at D 128 and 256).
+2b. conv    — the causal depthwise conv with its SiLU and its gradient
+              (``csrc/causal_conv.cu``) against their plain versions over
+              ``ref.CONV_SWEEP`` (f32 and bf16; two calls equal to the
+              bit), then timed in bf16 by CUDA events at mamba2-130m's
+              training shape [16, 2048, 1792] and granite-4.0-h-small's
+              prefill [1, 6720, 8448] beside the bound (bytes) and the
+              plain version (the stack + einsum + SiLU), a training
+              step's conv work (48 forwards, 24 gradients) and the
+              kernels' registers and spills; two rows (launches from
+              phase launch, which also counts 48 and 24 a step).
 3. serving  — llama3-8b at its published width and depth (random bf16
               weights from a seed) served by the co-executed paged
               continuous-batching scheduler with the ``kernels`` pass: 12
@@ -902,7 +913,9 @@ def launch_counters():
             "rmsnorm": kops.rmsnorm,
             "flash_attention": kops.flash_attention,
             "ssd_scan": kops.ssd_scan,
-            "ssd_scan_bwd": kops.ssd_scan_bwd}
+            "ssd_scan_bwd": kops.ssd_scan_bwd,
+            "causal_conv": kops.causal_conv,
+            "causal_conv_bwd": kops.causal_conv_bwd}
 
 
 def zero_counts():
@@ -2079,6 +2092,153 @@ def ssd_bwd_kernel_row():
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+CONV_NAMES = ("causal_conv[mamba2 training 16x2048]",
+              "causal_conv_bwd[mamba2 training 16x2048]")
+# the shapes the conv kernels are timed at: mamba2-130m's training cell
+# (16 x 2048, the (x, B, C) columns of the in-projection's 3352) and
+# granite-4.0-h-small's longest padded prefill (1 x 6720, 8448 of 16768
+# columns, bias and window); both buffers exceed the 50 MB L2
+CONV_TIMED = (("training", (16, 2048, 1792, 4, 3352, 1536, False, False)),
+              ("granite prefill", (1, 6720, 8448, 4, 16768, 8192, True,
+                                   True)))
+
+
+def conv_bound_ms(x, window, grad):
+    """x read once and y written once (the gradient: x and dy read, dx
+    written), the window read once (and its gradient written), at the
+    card's HBM rate: a few operations an element, so bytes bound it."""
+    n = x.numel() * x.element_size()
+    w = 0 if window is None else window.numel() * window.element_size()
+    return 1e3 * ((3 if grad else 2) * n + (2 if grad else 1) * w) \
+        / HBM_BYTES_PER_S
+
+
+def phase_conv(rows):
+    """causal_conv and causal_conv_bwd (the Mamba-2 block's depthwise
+    conv with its bias and SiLU, and its gradient) against their plain
+    versions over ``ref.CONV_SWEEP``, f32 and bf16: the forward within
+    CONV_TOL of ref_causal_conv computed in f32 and rounded once, every
+    gradient within CONV_TOL of ref_causal_conv_bwd, no NaN, a second call
+    equal to the bit.  Then, in bf16 at CONV_TIMED's shapes, each kernel's
+    time a call by CUDA events (three turns of 50 calls, the median) beside
+    the bound (bytes) and the plain version's (the stack + einsum + bias +
+    SiLU the model ran before; for the gradient autograd's backward
+    through it, its graph built beforehand), the conv work of one
+    training step (48 forwards, 24 gradients at 24 layers with remat), and
+    the kernels' registers and spills (the build log).  No PyTorch call
+    computes the conv with its SiLU.  Two rows, the training shape's;
+    their launches come from phase launch."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import (CONV_SWEEP, CONV_TOL,
+                                         ref_causal_conv, ref_causal_conv_bwd)
+
+    def inputs(case, dtype, seed):
+        B, S, dc, K, width, off, bias, window = case
+        x = seeded((B, S, width), dtype, seed)[..., off:off + dc]
+        w = seeded((dc, K), dtype, seed + 1, 0.5)
+        b = seeded((dc,), dtype, seed + 2, 0.3) if bias else None
+        win = seeded((B, K - 1, dc), dtype, seed + 3) if window else None
+        return x, w, b, win, seeded((B, S, dc), dtype, seed + 4)
+
+    def rel(got, want):
+        want = want.float()
+        return float((got.float() - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+
+    errs = {}
+    for i, case in enumerate(CONV_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x, w, b, win, dy = inputs(case, dtype, 900 + 10 * i)
+            f = [t if t is None else t.float() for t in (x, w, b, win, dy)]
+            y = kops.causal_conv(x, w, b, win)
+            y2 = kops.causal_conv(x, w, b, win)
+            g = kops.causal_conv_bwd(x, w, b, win, dy,
+                                     want_window=win is not None)
+            g2 = kops.causal_conv_bwd(x, w, b, win, dy,
+                                      want_window=win is not None)
+            torch.cuda.synchronize()
+            want = ref_causal_conv_bwd(*f, want_window=win is not None)
+            e = {"y": rel(y, ref_causal_conv(*f[:4]).to(dtype))}
+            e.update({k: rel(a, r) for k, a, r in
+                      zip(("dx", "dw", "db", "dwin"), g, want)
+                      if r is not None})
+            bitwise = torch.equal(y, y2) and all(
+                torch.equal(a, c) for a, c in zip(g, g2) if a is not None)
+            nan = any(bool(torch.isnan(t.float()).any())
+                      for t in (y,) + tuple(g) if t is not None)
+            log(f"causal_conv {case} {name}: bitwise repeat {bitwise}; max "
+                f"rel err " + " ".join(f"{k} {v:.2e}" for k, v in e.items())
+                + f" (tol {CONV_TOL[name]})")
+            check(all(v <= CONV_TOL[name] for v in e.values()) and not nan,
+                  f"causal_conv disagrees at {case} {name}: {e}")
+            check(bitwise, f"causal_conv is not bitwise repeatable at "
+                  f"{case} {name}")
+            if case == CONV_TIMED[0][1] and name == "bfloat16":
+                errs = e
+            del x, w, b, win, dy, f, y, y2, g, g2, want
+            release()
+
+    timed = {}
+    for label, case in CONV_TIMED:
+        x, w, b, win, dy = inputs(case, torch.bfloat16, 990)
+        fwd = [time_ms(lambda: kops.causal_conv(x, w, b, win), 50)
+               for _ in range(3)]
+        bwd = [time_ms(lambda: kops.causal_conv_bwd(x, w, b, win, dy), 50)
+               for _ in range(3)]
+        ps = [t if t is None else t.detach().clone().requires_grad_(True)
+              for t in (x, w, b, win)]
+        plain_fwd = time_ms(lambda: ref_causal_conv(x, w, b, win), 10)
+        yp = ref_causal_conv(*ps)
+        leaves = [t for t in ps if t is not None]
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            yp, leaves, dy, retain_graph=True), 10)
+        t = {"fwd": sorted(fwd)[1], "bwd": sorted(bwd)[1],
+             "fwd_bound": conv_bound_ms(x, win, False),
+             "bwd_bound": conv_bound_ms(x, None, True),
+             "plain_fwd": plain_fwd, "plain_bwd": plain_bwd}
+        timed[label] = t
+        log(f"causal_conv bf16 {label} {list(case[:4])}: forward "
+            f"{t['fwd']:.4f} ms a call by CUDA events (turns "
+            + ", ".join(f"{v:.4f}" for v in fwd)
+            + f"), {t['fwd'] / t['fwd_bound']:.2f}x the bound "
+            f"{t['fwd_bound']:.4f} ms (bytes), plain {plain_fwd:.3f} ms; "
+            f"gradient {t['bwd']:.4f} ms (turns "
+            + ", ".join(f"{v:.4f}" for v in bwd)
+            + f"), {t['bwd'] / t['bwd_bound']:.2f}x the bound "
+            f"{t['bwd_bound']:.4f} ms (bytes), plain backward "
+            f"{plain_bwd:.3f} ms")
+        del x, w, b, win, dy, ps, yp, leaves
+        release()
+    tr = timed["training"]
+    step = 48 * tr["fwd"] + 24 * tr["bwd"]
+    log(f"causal_conv: a mamba2-130m training step's conv work (48 "
+        f"forwards, 24 gradients at [16, 2048, 1792]) {step:.2f} ms on the "
+        f"kernels, bound {48 * tr['fwd_bound'] + 24 * tr['bwd_bound']:.2f} "
+        f"ms, plain {48 * tr['plain_fwd'] + 24 * tr['plain_bwd']:.1f} ms")
+    regs = [f"{k} {r} registers, {sp} bytes spill stores"
+            for k, r, sp in ptxas_entries(build.LOGS.get("causal_conv", ""))
+            if "<bf16,4,true>" in k or "<f32,4,true>" in k
+            or k.startswith("causal_conv_bwd_sum")]
+    log(f"causal_conv registers: " + ("; ".join(regs) or "not in the build "
+        "log"))
+    out = []
+    for name, key in zip(CONV_NAMES, ("fwd", "bwd")):
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+                    "replaces": "src/repro/models/ssm.py (the conv einsum; "
+                                "no TPU kernel)",
+                    "launches": None,
+                    "max_abs_err": max(errs.values()) if errs else None,
+                    "ms": tr[key], "plain_ms": tr["plain_" + key],
+                    "bound_ms": tr[key + "_bound"], "bound_by": "bytes",
+                    "library_ms": None,
+                    "granite_prefill_ms": timed["granite prefill"][key]})
+    rows.extend(out)
 
 
 MAMBA_SERVE_KW = dict(max_slots=16, max_len=2048)
@@ -4503,7 +4663,9 @@ def run_launcher(argv):
     counts = read_counts()
     tr = made[0]
     out = {"stdout": buf.getvalue(), "launches": counts["ssd_scan"],
-           "bwd_launches": counts["ssd_scan_bwd"], "wall_s": wall,
+           "bwd_launches": counts["ssd_scan_bwd"],
+           "conv_launches": counts["causal_conv"],
+           "conv_bwd_launches": counts["causal_conv_bwd"], "wall_s": wall,
            "history": tr.history, "start_step": tr.start_step,
            "stats": {k: v for k, v in getattr(tr, "stats", {}).items()
                      if isinstance(v, int)}}
@@ -4662,7 +4824,9 @@ def phase_launch(rows):
             f"max_memory_allocated {res['peak_gib']:.3f} GiB, ssd_scan "
             f"launches {res['launches']} ({res['launches'] / steps:.1f} a "
             f"step), ssd_scan_bwd launches {res['bwd_launches']} "
-            f"({res['bwd_launches'] / steps:.1f} a step), process "
+            f"({res['bwd_launches'] / steps:.1f} a step), causal_conv "
+            f"launches {res['conv_launches']} / {res['conv_bwd_launches']} "
+            f"(forward / gradient), process "
             f"{res['proc_s']:.1f} s, launcher {res['wall_s']:.1f} s")
         log(f"launch {label} losses: "
             + json.dumps([round(l, 5) for l in losses]))
@@ -4678,6 +4842,13 @@ def phase_launch(rows):
         check(res["bwd_launches"] == cfg.n_layers * steps,
               f"launch {label}: {res['bwd_launches']} ssd_scan_bwd "
               f"launches, not {cfg.n_layers} x {steps}")
+        # the conv runs beside the scan in every layer's forward and
+        # gradient
+        check(res["conv_launches"] == per_step * steps
+              and res["conv_bwd_launches"] == cfg.n_layers * steps,
+              f"launch {label}: causal_conv launches "
+              f"{res['conv_launches']} / {res['conv_bwd_launches']}, not "
+              f"{per_step} / {cfg.n_layers} x {steps}")
     check(_launch_losses(a)[-1] < _launch_losses(a)[0],
           "launch: the loss did not fall")
     check(f"auto-resumed from step {LAUNCH_STEPS}" in b["stdout"]
@@ -4688,6 +4859,9 @@ def phase_launch(rows):
     for row in rows:
         if row["name"] == SSD_BWD_NAME:
             row["launches"] = a["bwd_launches"]
+        if row["name"] in CONV_NAMES:
+            row["launches"] = a["conv_launches" if row["name"] ==
+                                CONV_NAMES[0] else "conv_bwd_launches"]
 
     # 2 layers in f32 (TF32 off): steps 21-30 of a resumed run against an
     # unbroken one, then card against CPU
@@ -5001,7 +5175,8 @@ def main() -> int:
         from repro_torch.kernels import build
         t0 = time.perf_counter()
         built = build.build_all(["paged_attention", "rmsnorm",
-                                 "flash_attention", "ssd_scan"])
+                                 "flash_attention", "ssd_scan",
+                                 "causal_conv"])
         log(f"build: {json.dumps(built)} (wall {time.perf_counter() - t0:.1f}"
             f" s)")
         for name, text in build.LOGS.items():
@@ -5014,7 +5189,8 @@ def main() -> int:
                 # every rmsnorm, SSD and flash kernel (whisper's D 64
                 # too); paged at the path widths (D 128 and 256) and the
                 # registry's groups
-                if name in ("rmsnorm", "ssd_scan", "flash_attention") \
+                if name in ("rmsnorm", "ssd_scan", "flash_attention",
+                            "causal_conv") \
                         or re.search(r"[<,](128|256)[,>]", kname) \
                         or not re.search(r"[<,]\d", kname):
                     log(f"    {kname}: {regs} registers, {spill} bytes "
@@ -5035,6 +5211,7 @@ def main() -> int:
                        else None)
         phases = [
             ("kernels", kernel_rows),
+            ("conv", lambda: phase_conv(rows)),
             ("serving", lambda: phase_serving(rows)),
             ("tokens", phase_tokens),
             ("coexec-kernels", lambda: phase_coexec_kernels(rows,

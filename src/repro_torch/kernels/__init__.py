@@ -8,6 +8,9 @@
     ssd_scan        — Mamba-2 SSD chunked scan with an optional final
                       state, and its gradient ``ops.ssd_scan_bwd``
                       (csrc/ssd_scan.cu)
+    causal_conv     — Mamba-2's causal depthwise conv with its bias and
+                      SiLU, and its gradient ``ops.causal_conv_bwd``
+                      (csrc/causal_conv.cu)
     build.py        — nvcc build (sm_90a) at first use into kernels/_build/,
                       bound by ctypes
     ref.py          — plain versions: the CPU path and the ground truth

@@ -9,7 +9,9 @@ first use, from the repo's sources only, by ``nvcc`` for ``sm_90a`` into
 
 The library name carries a digest of the source, so an edited kernel is
 rebuilt and a built one is reused within a checkout.  :func:`build_all`
-starts one ``nvcc`` per source, all at once, and waits for them together.
+starts one ``nvcc`` per source, all at once, and waits for them together;
+the first use of a source one model block shares with another
+(:data:`TOGETHER`) builds both so.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -30,6 +32,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# sources one model block needs together, built at once on the first use
+# of either: the Mamba-2 block runs the SSD scan and the causal conv
+TOGETHER = {"ssd_scan": ("ssd_scan", "causal_conv"),
+            "causal_conv": ("causal_conv", "ssd_scan")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -140,13 +147,14 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+    """The loaded kernel library ``name``, built first if needed (with
+    the sources :data:`TOGETHER` names beside it)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all([name])
+            build_all(TOGETHER.get(name, (name,)))
             lib = _LIBS[name] = ctypes.CDLL(_paths(name)[1])
     return lib

@@ -171,6 +171,76 @@ def ref_rmsnorm(x, g, eps: float = 1e-6):
     return (y * (1.0 + g.float())).to(x.dtype)
 
 
+# The shapes at which the causal_conv kernels are held against their plain
+# versions (tests and chip_smoke.py): (B, S, dc, K, width, offset, bias,
+# window), x the columns offset .. offset + dc of a [B, S, width] buffer.
+# mamba2-130m's training shape (the (x, B, C) columns of the
+# in-projection's 3352), granite-4.0-h-small's longest padded prefill (B 1,
+# dc 8448 of 16768, bias and window), S no multiple of a CTA's rows, S
+# below K-1, K 2 and 3, rows that are not 16-byte aligned (the smoke
+# config's 164 columns) and a dc that is no multiple of the 16-byte width
+# (masked accesses).
+CONV_SWEEP = [
+    (16, 2048, 1792, 4, 3352, 1536, False, False),
+    (1, 6720, 8448, 4, 16768, 8192, True, True),
+    (3, 1000, 1792, 4, 3352, 1536, True, True),
+    (2, 2, 256, 4, 256, 0, True, True),
+    (2, 130, 96, 2, 164, 64, False, True),
+    (1, 77, 40, 3, 40, 0, True, False),
+    (2, 300, 100, 4, 164, 0, True, True),
+]
+# relative to the largest value: f32 sums in another order; bf16 the
+# kernel rounds once against the plain version's rounding of the conv
+CONV_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def ref_causal_conv(x, w, b=None, window=None):
+    """silu(depthwise causal conv + b) as the Mamba-2 block computes it
+    (``models/ssm.py``, the reference's stack of K shifted windows and
+    einsum): x [B, S, dc], w [dc, K], b [dc] or None, window [B, K-1, dc]
+    or None (zeros) -> [B, S, dc].  The conv is rounded to the operands'
+    promoted dtype before the bias and the SiLU, as there."""
+    B, S, dc = x.shape
+    K = w.shape[-1]
+    if window is None:
+        window = torch.zeros((B, K - 1, dc), dtype=x.dtype, device=x.device)
+    ci = torch.cat([window, x], dim=1)
+    win = torch.stack([ci[:, i:i + S] for i in range(K)], dim=-1)  # [B,S,dc,K]
+    dt = torch.promote_types(win.dtype, w.dtype)       # jnp.einsum's rule
+    conv = torch.einsum("bsdk,dk->bsd", win.to(dt), w.to(dt))
+    if b is not None:
+        conv = conv + b
+    return torch.nn.functional.silu(conv)
+
+
+def ref_causal_conv_bwd(x, w, b, window, dy, *, want_window: bool = False):
+    """The gradient kernel's arithmetic in plain torch, in f32 (or wider):
+    the pre-activation recomputed from the inputs, g = dy * silu'(pre),
+    dci[r] = sum_k g[r - k] * w[:, k] over ci = cat(window, x), dx =
+    dci[K-1:], dw[:, k] = sum g * ci[k:k+S], db = sum g -> (dx, dw, db or
+    None, dwindow or None) in x's, w's, b's and the window's dtypes."""
+    B, S, dc = x.shape
+    K = w.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    lead = (torch.zeros((B, K - 1, dc), dtype=acc, device=x.device)
+            if window is None else window.to(acc))
+    ci = torch.cat([lead, x.to(acc)], dim=1)                 # [B, S+K-1, dc]
+    wf = w.to(acc)
+    pre = sum(ci[:, k:k + S] * wf[:, k] for k in range(K))
+    if b is not None:
+        pre = pre + b.to(acc)
+    sg = torch.sigmoid(pre)
+    g = dy.to(acc) * (sg * (1 + pre * (1 - sg)))
+    gp = torch.nn.functional.pad(g, (0, 0, K - 1, K - 1))    # [B, S+2K-2, dc]
+    dci = sum(gp[:, K - 1 - k:K - 1 - k + S + K - 1] * wf[:, k]
+              for k in range(K))                             # [B, S+K-1, dc]
+    dw = torch.stack([(g * ci[:, k:k + S]).sum((0, 1)) for k in range(K)], -1)
+    db = None if b is None else g.sum((0, 1)).to(b.dtype)
+    dwin = dci[:, :K - 1].to(window.dtype) if want_window and \
+        window is not None else None
+    return dci[:, K - 1:].to(x.dtype), dw.to(w.dtype), db, dwin
+
+
 # the SSD scan's plain versions, shapes and tolerances live in ref_ssd
 from repro_torch.kernels.ref_ssd import (  # noqa: E402,F401
     SSD_SWEEP, SSD_TOL, ref_ssd, ref_ssd_bwd, ssd_chunk_parallel)

@@ -16,6 +16,14 @@ CPU.  Any other device raises.
 Decode: a single recurrent state update per token (``ssd_decode_step``),
 O(H*P*N) per step, in plain torch ops, as the reference computes it
 outside any kernel.
+
+The block's depthwise causal conv with its bias and SiLU (``causal_conv``)
+launches the hand-written conv kernel (``kernels.ops.causal_conv``) on
+CUDA tensors of more than one row, under autograd through
+:class:`CausalConv` (the gradient kernel ``kernels.ops.causal_conv_bwd``
+backward); a one-row call (the decode step) runs the plain version
+(``kernels.ref.ref_causal_conv``, the reference's stack and einsum), and
+so do CPU and ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.ops import promoted
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import ref_causal_conv
 from repro_torch.models.layers import dense, rms_norm
 from repro_torch.parallel.sharding import is_dtensor
 
@@ -220,6 +229,47 @@ def _ssd_decode_math(state, x, dt, A, Bm, Cm):
 # Full Mamba-2 block (projections + conv + SSD + gate)
 # --------------------------------------------------------------------------
 
+class CausalConv(torch.autograd.Function):
+    """The conv as autograd sees it: the forward launches the conv kernel
+    (``kops.causal_conv``) and saves only its inputs; the backward launches
+    the gradient kernel (``kops.causal_conv_bwd``, which recomputes the
+    pre-activation) once, and asks it for the window's gradient only when
+    autograd wants it.  Nothing here reads the device on the host, so a
+    captured train step holds both passes."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, window):
+        ctx.save_for_backward(x, w, b, window)
+        ctx.set_materialize_grads(False)
+        return kops.causal_conv(x, w, b, window)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return (None,) * 4
+        x, w, b, window = ctx.saved_tensors
+        if dy.shape[-1] > 1 and dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        need = ctx.needs_input_grad
+        gs = kops.causal_conv_bwd(x, w, b, window, dy, want_window=need[3])
+        return tuple(g if n else None for g, n in zip(gs, need))
+
+
+def causal_conv(x, w, b=None, window=None):
+    """silu(depthwise causal conv of x [B, S, dc] after ``window`` [B, K-1,
+    dc] (zeros when None) with taps w [dc, K], plus b [dc]).  The path
+    follows what the call shows: one row (S == 1, the decode step) runs
+    the plain version; a CUDA tensor launches the conv kernel, through
+    :class:`CausalConv` when autograd records; CPU and ``meta`` tensors run
+    the plain version through the wrapper."""
+    if x.shape[1] == 1:
+        return ref_causal_conv(x, w, b, window)
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b, window)):
+        return CausalConv.apply(x, w, b, window)
+    return kops.causal_conv(x, w, b, window)
+
+
 def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes, b_conv=None,
          lengths=None):
     """Between mamba2_block's projections: the split into (z gate, x, B,
@@ -229,18 +279,16 @@ def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes, b_conv=None,
     (z, dt, silu(conv), the new window: the last K-1 rows, or None without
     a state).  ``lengths`` [B] (a padded prefill): row b's window is its
     last K-1 real rows, and its dt is 0 from position ``lengths[b]`` on,
-    so the scan's decay there is 1 and its update 0."""
-    z, xin, Bm, Cm, dt = torch.split(zxbcdt, sizes, dim=-1)
+    so the scan's decay there is 1 and its update 0.  The conv reads (x,
+    B, C) where they lie, adjacent columns of ``zxbcdt``."""
+    d_inner, H = sizes[0], sizes[-1]
+    z, conv_in, dt = torch.split(
+        zxbcdt, [d_inner, zxbcdt.shape[-1] - d_inner - H, H], dim=-1)
     dt = F.softplus(dt + dt_bias)                                # [B,S,H]
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                   # [B,S,dc]
     B, S, dc = conv_in.shape
     K = w_conv.shape[-1]
     new_conv_state = None
-    if conv_state is None:
-        pad = torch.zeros((B, K - 1, dc), dtype=conv_in.dtype,
-                          device=conv_in.device)
-        ci = torch.cat([pad, conv_in], dim=1)
-    else:
+    if conv_state is not None:
         ci = torch.cat([conv_state, conv_in], dim=1)
         if lengths is None:
             new_conv_state = ci[:, -(K - 1):]
@@ -253,11 +301,7 @@ def _mix(zxbcdt, dt_bias, w_conv, conv_state, sizes, b_conv=None,
     if lengths is not None:
         real = torch.arange(S, device=dt.device) < lengths.long()[:, None]
         dt = dt * real[..., None].to(dt.dtype)
-    win = torch.stack([ci[:, i:i + S] for i in range(K)], dim=-1)  # [B,S,dc,K]
-    conv = _einsum("bsdk,dk->bsd", win, w_conv)
-    if b_conv is not None:
-        conv = conv + b_conv
-    conv_out = F.silu(conv)
+    conv_out = causal_conv(conv_in, w_conv, b_conv, conv_state)
     return z, dt, conv_out, new_conv_state
 
 
