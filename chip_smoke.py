@@ -2,7 +2,6 @@
 """Drive the PyTorch port (src/repro_torch) end to end on one CUDA card.
 
     python3 chip_smoke.py                 # every phase (needs one H100)
-    python3 chip_smoke.py --profile       # + steady-state decode timing
     python3 chip_smoke.py --only obs,persist   # the build and two phases
     python3 chip_smoke.py --only launch,parallel
     python3 chip_smoke.py --only dryrun,examples
@@ -258,22 +257,6 @@ Phases, in order; any failure exits non-zero and prints no result:
               phases equal the same program's on the CPU (losses within
               1e-3 as printed; coexec_showcase's iterations 0-7, where
               its noise is 0.0) and so do their int stats.
-20. profile — only with ``--profile``: steady-state decode time per step,
-              kernel path against gather path in turns, and a
-              torch.profiler window (device time by kernel, busy share,
-              the paged kernels' device time per decode step); phase 5
-              then also profiles two calls of each scoring program (the
-              flash and rmsnorm kernels' device time per call),
-              and mamba2 serving is timed and profiled over batches of 16
-              requests (prompts 512-527, 64 new tokens; the SSD kernels'
-              device time per batch); last, ten steps of the 100m
-              trainer under the profiler (device time by kernel class
-              per step, busy share); each family's captured steady
-              decode (device time by class: matrix products, the paged
-              kernels, the rest; busy share); five steps of the mamba2
-              launcher's trainer (8 x 2048 tokens, device time by class
-              a step: products, the SSD kernels and among them the
-              backward's own, elementwise).
 
 The line before the last is one JSON object of kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -292,10 +275,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
+if HERE not in sys.path:        # loaded by path: the benchmark sits beside it
+    sys.path.insert(0, HERE)
 
-HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12,  # dense tensor-core bf16
-                  "float32": 67e12}    # f32 outside the tensor cores
+# the card's published peaks and the paged bound: the benchmark's own
+from portbench.roofline import bounds  # noqa: E402
+from portbench.roofline.peaks import HBM_BYTES_PER_S, OPS_PER_S  # noqa: E402
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -341,27 +327,46 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return device_split(fn, iters, warmup)[0]
 
 
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profiled(run):
+    """One torch.profiler window of device activity over ``run()``, the
+    card synced before it and inside it after ``run()``: (what ``run()``
+    returned, its wall seconds, [(kernel, device us, launches)] of every
+    kernel with device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, [(e.key, us, e.count) for e in prof.key_averages()
+                       if (us := _device_us(e)) > 0]
+
+
 def device_split(fn, iters: int, warmup: int = 3):
     """(total, {kernel: ms}) per call of ``fn()``: the device time of each
     kernel it launched, from one torch.profiler window, for a call that
     launches several kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    def calls():
+        for _ in range(iters):
+            fn()
+
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     for _ in range(3):          # a window that caught no kernel is retaken
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
         split = {}
-        for e in prof.key_averages():
-            us = _device_us(e)
-            if us > 0:
-                key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
-                             e.key)
-                split[key] = split.get(key, 0.0) + us / 1e3 / iters
+        for key, us, _ in profiled(calls)[2]:
+            key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", key)
+            split[key] = split.get(key, 0.0) + us / 1e3 / iters
         if split:
             return sum(split.values()), split
     raise SmokeFailure("the profiler recorded no device time")
@@ -786,21 +791,14 @@ def paged_inputs(B, Hq, Hkv, D, bs, nbps, nblocks, valid, dtype, seed):
             torch.tensor(valid, dtype=torch.int32, device=dev))
 
 
-def paged_bound_ms(q, kp, bt, valid, bs, window=0) -> float:
-    """Least time for the work these inputs need: each valid (in-window)
-    K/V position read once, q read and the output written once, the table
-    entries of the blocks read; operations 4·Hq·D per position."""
-    B, _, Hq, D = q.shape
-    Hkv = kp.shape[2]
-    el = q.element_size()
-    vl = valid.tolist()
-    pos = [min(v, window) if window else v for v in vl]
-    blocks = sum(-(-v // bs) for v in vl)
-    nbytes = (sum(pos) * Hkv * D * 2 * el + 2 * q.numel() * el
-              + blocks * 4 + B * 4)
-    ops = 4 * sum(pos) * Hq * D
-    dt = str(q.dtype).replace("torch.", "")
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt])
+def paged_bound_ms(q, kp, valid, bs, window=0) -> float:
+    """``portbench.roofline.bounds.paged_bound_ms`` (the ledger's
+    ``kernel.paged_attention_roofline`` divides by it) at these inputs:
+    q [B, 1, Hq, D], the arena kp [blocks, bs, Hkv, D], valid [B]."""
+    _, _, Hq, D = q.shape
+    return bounds.paged_bound_ms(valid.tolist(), Hq, kp.shape[2], D, bs,
+                                 el=q.element_size(), window=window,
+                                 dtype=str(q.dtype).replace("torch.", ""))
 
 
 def sdpa_dense(q, kp, vp, bt, valid, window=0):
@@ -879,7 +877,7 @@ def phase_kernels():
                            for k, v in rot])
         lib = rotating([sdpa_dense(q, k, v, bt, vl) for k, v in rot])
         got, ms, lib_ms = turns(kernel, lib, 48)
-        bound = paged_bound_ms(q, kp, bt, vl, bs)
+        bound = paged_bound_ms(q, kp, vl, bs)
         label = (f"paged_attention bf16 B={B} Hq={Hkv * G} Hkv={Hkv} D={D} "
                  f"bs={bs} nbps={nbps} (max valid {max(valid)})")
         log(f"{label} turns (kernel, sdpa over gathered K/V) ms: "
@@ -1000,7 +998,7 @@ def rmsnorm_kernel_row(shape):
         + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got))
     nbytes = 2 * xs[0].numel() * 2 + d * 2  # x read, out written, g read
     bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                      4 * xs[0].numel() / PEAK_OPS_PER_S["bfloat16"])
+                      4 * xs[0].numel() / OPS_PER_S["bfloat16"])
     log(f"rmsnorm bf16 {shape} device time: kernel {ms:.5f} ms "
         f"({ms / lib_ms:.3f}x F.rms_norm, {bound / ms:.1%} of the HBM rate),"
         f" plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.5f} ms, bound "
@@ -1035,7 +1033,7 @@ def attn_bound_ms(q, k, causal, window=0):
     nbytes = 2 * q.numel() * el + 2 * k.numel() * el
     ops = 4 * D * B * H * attn_pairs(Sq, k.shape[2], causal, window)
     dt = str(q.dtype).replace("torch.", "")
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S[dt]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -1162,7 +1160,7 @@ def family_paged_rows():
             lambda k=k, v=v: ref_paged_attention(q, k, v, bt, vl,
                                                  window=window)
             for k, v in rot]), 20)
-        bound = paged_bound_ms(q, kp, bt, vl, bs, window)
+        bound = paged_bound_ms(q, kp, vl, bs, window)
         _, split = device_split(kernel, 48)
         log(f"{label} turns (kernel, sdpa over gathered K/V) ms: "
             + ", ".join(f"({k:.5f}, {v:.5f})" for k, v in got)
@@ -1399,95 +1397,6 @@ def phase_serving(kernel_rows):
     release()
 
 
-def report_profile(prof, title, wall, path, show, per=None):
-    """Device time by kernel from a torch.profiler window and the device
-    busy share of ``wall`` seconds: the table goes to ``path``, its first
-    ``show`` lines to the log.  ``per``: a list of (label, kernel names,
-    units, unit name), each adding the named kernels' device time per
-    unit."""
-    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
-    evts.sort(key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in evts) / 1e6
-    lines = [f"{title}, wall {wall * 1e3:.1f} ms under the profiler; "
-             f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% "
-             f"of wall"]
-    for i, (label, names, units, unit) in enumerate(per or ()):
-        sel = [e for e in evts if any(n in e.key for n in names)]
-        ms = sum(_device_us(e) for e in sel) / 1e3
-        lines.insert(1 + i, f"{label}: {ms / units:.3f} ms device time per "
-                     f"{unit} ({ms:.3f} ms, {sum(e.count for e in sel)} "
-                     f"launches over {units} {unit}s)")
-    for e in evts[:40]:
-        lines.append(f"{_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  "
-                     f"{e.key[:90]}")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    for line in lines[:show]:
-        log("profile: " + line)
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def phase_profile(out_dir):
-    """Steady-state decode at full width, kernel path against gather path,
-    in turns (gather, kernel, kernel, gather), each arm warmed up first:
-    host wall time per decode step, then one torch.profiler window over a
-    kernel-path batch for device time by kernel and the device busy share.
-    Writes the full table to ``out_dir``/profile_decode.txt."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
-
-    cfg = get_config("llama3-8b")
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    arms = {"kernel": ContinuousBatchingScheduler(cfg, params,
-                                                  optimize=KERNELS,
-                                                  **SERVE_KW),
-            "gather": ContinuousBatchingScheduler(cfg, params,
-                                                  optimize="safe",
-                                                  **SERVE_KW)}
-
-    def batch(sched, seed):
-        """8 requests admitted together: one prefill, then 47 decode steps
-        with all 8 slots active.  Returns (wall s, decode steps)."""
-        reqs = make_requests(cfg, 8, seed, 128, 128, 48, 48)
-        st0 = sched.stats["decode_steps"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sched.serve(reqs)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, sched.stats["decode_steps"] - st0
-
-    for sched in arms.values():             # tracing + steady-state entry
-        batch(sched, 100)
-    for name in ("gather", "kernel", "kernel", "gather"):
-        wall, steps = batch(arms[name], 101)
-        log(f"profile {name}: {steps} decode steps + 1 prefill in "
-            f"{wall * 1e3:.1f} ms = {wall / steps * 1e3:.2f} ms/decode step "
-            f"(8 active slots, {8 * steps / wall:.1f} tokens/s)")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, steps = batch(arms["kernel"], 102)
-    report_profile(prof, f"kernel path, {steps} decode steps + 1 prefill",
-                   wall, os.path.join(out_dir, "profile_decode.txt"), 16,
-                   per=[("paged kernels (split + combine)",
-                         ("paged_split_kernel", "paged_combine_kernel"),
-                         steps, "decode step")])
-    for sched in arms.values():
-        sched.close()
-    del arms, params
-    release()
-
-
 def top2_gap(cfg, params, tokens) -> float:
     """Gap between the two largest next-token logits after ``tokens``
     (plain dense prefill), to tell a near-tie from a real disagreement."""
@@ -1578,30 +1487,7 @@ def score_call(step, cfg, i):
     return scores
 
 
-def profile_score_calls(step, cfg, name, out_dir, n=2):
-    """One torch.profiler window over ``n`` calls of a scoring program:
-    device time by kernel and the device busy share, the table written to
-    ``out_dir``/profile_score_<name>.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            score_call(step, cfg, 200 + i)
-        step.wait()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report_profile(prof, f"{name} program, {n} calls of {SCORE_BATCH}x"
-                   f"{SCORE_SEQ} tokens", wall,
-                   os.path.join(out_dir, f"profile_score_{name}.txt"), 12,
-                   per=[("flash kernel", ("flash_bf16_kernel",), n, "call"),
-                        ("rmsnorm kernel", ("rmsnorm_reg_kernel",
-                                            "rmsnorm_kernel"), n, "call")])
-
-
-def phase_coexec_kernels(rows, profile_dir=None):
+def phase_coexec_kernels(rows):
     import torch
     import repro_torch.core as core
     from repro_torch.configs import get_config
@@ -1680,9 +1566,6 @@ def phase_coexec_kernels(rows, profile_dir=None):
         f"(bf16 rounding differs between the arms, and the flash kernel "
         f"rounds P to bf16 before P.V; phase 6 checks f32)")
     check(unfused.phase == "co-execution", f"unfused phase {unfused.phase}")
-    if profile_dir is not None:
-        for name, fn in arms.items():
-            profile_score_calls(fn, cfg, name, profile_dir)
     for fn in arms.values():
         fn.close()
     del step, unfused, arms, params
@@ -1769,6 +1652,8 @@ def ssd_inputs(B, S, H, P, N, dtype, seed, dt_dtype, strided):
     return x, dt, A, Bm, Cm
 
 
+# the SSD bounds stay the script's own: they follow kernels/ssd_scan.CHUNK,
+# where portbench.roofline.bounds freezes the chunk at 64
 def ssd_pairs(S):
     """The causal (i >= j) token pairs of the kernels' chunks over S
     tokens: the intra-chunk products' work, a ragged last chunk counted
@@ -1791,7 +1676,7 @@ def ssd_bound_ms(x, dt, Bm, final):
               + H * 4 + (B * H * P * N * 4 if final else 0))
     ops = 2 * B * (ssd_pairs(S) * (N + H * P) + S * H * 2 * P * N)
     dtn = str(x.dtype).replace("torch.", "")
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtn]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S[dtn]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -1938,7 +1823,7 @@ def ssd_bwd_bound_ms(x, dt, Bm, final):
     ops = 2 * B * (ssd_pairs(S) * (N + H * (2 * P + 2 * N))
                    + S * H * 5 * P * N)
     dtn = str(x.dtype).replace("torch.", "")
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtn]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S[dtn]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -2658,135 +2543,6 @@ def phase_train():
     release()
 
 
-def phase_train_profile(out_dir):
-    """Ten co-executed steps of the 100m trainer (after 12 warm-up steps)
-    under torch.profiler: device time by kernel and class per step, the
-    device busy share of the steps' wall.  Writes the table to
-    ``out_dir``/profile_train.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.trainer import Trainer
-
-    cfg = ModelConfig(**TRAIN_100M["cfg"])
-    tr = Trainer(cfg, OptConfig(warmup_steps=5, total_steps=100),
-                 batch=TRAIN_100M["batch"], seq_len=TRAIN_100M["seq_len"],
-                 log_every=10)
-    tr.train(12, verbose=False)
-    tr._iteration.wait()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train(10, verbose=False)
-        tr._iteration.wait()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    log(f"profile train 100m: 10 steps in {wall * 1e3:.1f} ms under the "
-        f"profiler = {wall * 1e2:.2f} ms/step")
-    report_profile(prof, "train 100m, 10 co-executed steps", wall,
-                   os.path.join(out_dir, "profile_train.txt"), 24,
-                   per=[("GEMMs", ("gemm", "nvjet", "cutlass", "xmma"), 10,
-                         "step"),
-                        ("elementwise", ("elementwise", "vectorized"), 10,
-                         "step"),
-                        ("reductions", ("reduce",), 10, "step")])
-    tr._iteration.close()
-    del tr
-    release()
-
-
-def phase_launch_profile(out_dir):
-    """Five co-executed steps of the launcher's mamba2-130m trainer (full
-    width and depth, 8 x 2048 tokens, after 6 warm-up steps) under
-    torch.profiler: device time by kernel and class per step (matrix
-    products, the SSD kernels, elementwise, reductions), the busy share.
-    Writes the table to ``out_dir``/profile_launch.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.trainer import Trainer
-
-    tr = Trainer(get_config("mamba2-130m"), OptConfig(warmup_steps=2,
-                                                      total_steps=30),
-                 batch=8, seq_len=2048, log_every=100)
-    tr.train(6, verbose=False)
-    tr._iteration.wait()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train(5, verbose=False)
-        tr._iteration.wait()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report_profile(prof, "launch mamba2-130m, 5 co-executed steps", wall,
-                   os.path.join(out_dir, "profile_launch.txt"), 30,
-                   per=[("GEMMs", ("gemm", "nvjet", "cutlass", "xmma"), 5,
-                         "step"),
-                        ("SSD kernels", ("ssd_",), 5, "step"),
-                        ("SSD backward's own kernels (a', b', c', sums)",
-                         ("ssd_grad", "ssd_rpass", "ssd_bwd",
-                          ", true>"), 5, "step"),
-                        ("elementwise", ("elementwise", "vectorized"), 5,
-                         "step"),
-                        ("reductions", ("reduce",), 5, "step"),
-                        ("scans (cumsum)", ("scan", "cumsum"), 5, "step")])
-    tr._iteration.close()
-    del tr
-    release()
-
-
-def phase_mamba2_profile(out_dir):
-    """Steady mamba2-130m serving at full width and depth (bf16): after a
-    warm-up batch (tracing, co-execution entry), batches of 16 requests
-    admitted together (prompts 512-527 tokens at exact length, 64 new
-    tokens each) through 16 slots: host wall time per batch, then one
-    torch.profiler window over a batch for device time by kernel and the
-    device busy share (the table in ``out_dir``/profile_mamba2.txt)."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
-
-    cfg = get_config("mamba2-130m")
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    sched = ContinuousBatchingScheduler(cfg, params, **MAMBA_SERVE_KW)
-
-    def batch(seed):
-        reqs = make_requests(cfg, 16, seed, 512, 527, 64, 64)
-        st0 = dict(sched.stats)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sched.serve(reqs)
-        torch.cuda.synchronize()
-        st = sched.stats
-        return (time.perf_counter() - t0,
-                st["decode_steps"] - st0["decode_steps"],
-                st["prefill_steps"] - st0["prefill_steps"])
-
-    batch(200)
-    for seed in (201, 202):
-        wall, dec, pre = batch(seed)
-        log(f"mamba2 profile: {pre} prefill steps + {dec} decode steps in "
-            f"{wall * 1e3:.1f} ms ({16 * 64 / wall:.1f} generated tokens/s)")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, dec, pre = batch(210)
-    report_profile(prof, f"mamba2 serving, {pre} prefill steps + {dec} "
-                   f"decode steps", wall,
-                   os.path.join(out_dir, "profile_mamba2.txt"), 16,
-                   per=[("ssd_scan kernels (chunk, state, output passes)",
-                         ("ssd_state_", "ssd_pass_kernel", "ssd_out_"), 1,
-                         "batch")])
-    sched.close()
-    del sched, params
-    release()
-
-
 # --------------------------------------------------------------------------
 # phase 11: captured segments (core/capture.py) against disable_jit()
 # --------------------------------------------------------------------------
@@ -2946,17 +2702,9 @@ def capture_equality():
 def busy_window(run):
     """(wall s, device busy s, units, {kernel: launches}) of one ``run()``
     under torch.profiler: the device time summed over every kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        units = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
-    busy = sum(_device_us(e) for e in evts) / 1e6
-    return wall, busy, units, {e.key: e.count for e in evts}
+    units, wall, kernels = profiled(run)
+    busy = sum(us for _, us, _ in kernels) / 1e6
+    return wall, busy, units, {key: n for key, _, n in kernels}
 
 
 PROFILED_SHARE = 0.9     # least share of counted launches the profiler sees
@@ -3036,11 +2784,10 @@ CAPTURE_TIMING_LAYERS = {"llama3-8b": 8, "mamba2-130m": 6, "train-100m": 5}
 
 def capture_timing():
     """Full width at CAPTURE_TIMING_LAYERS depth, bf16, both arms in one
-    call: llama3-8b steady decode (the profile phase's batch: 8 requests
-    of 128 tokens, 48 new), mamba2-130m serving (16 requests of 512-527
-    tokens, 64 new), the scoring program (llama3-8b, 4 x 512 tokens, 5
-    calls a turn) and the 100m trainer (10 steps a turn, each loss
-    fetched)."""
+    call: llama3-8b steady decode (8 requests of 128 tokens, 48 new),
+    mamba2-130m serving (16 requests of 512-527 tokens, 64 new), the
+    scoring program (llama3-8b, 4 x 512 tokens, 5 calls a turn) and the
+    100m trainer (10 steps a turn, each loss fetched)."""
     import torch
     import repro_torch.core as core
     from repro_torch.configs import get_config
@@ -3231,8 +2978,7 @@ def family_config(arch, layers, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
-def serve_family(arch, layers, serve_kw, traffic, kernel_rows, profile_dir,
-                 steady=True):
+def serve_family(arch, layers, serve_kw, traffic, kernel_rows, steady=True):
     """One family at published width, bf16 random weights: served by the
     co-executed paged scheduler with the kernels pass (launch counters
     zeroed just before, read just after: the paged kernel runs once per
@@ -3336,55 +3082,11 @@ def serve_family(arch, layers, serve_kw, traffic, kernel_rows, profile_dir,
             8e3 / out[name]["ms_per_decode_step"], 1)
     check_captured(f"{arch} steady decode", sched._tf.engine)
     check_eager(f"{arch} steady decode", eager._tf.engine)
-    if profile_dir is not None:
-        profile_family_decode(arch, arms["captured"][0], n_attn,
-                              profile_dir)
     sched.close()
     eager.close()
     del params, sched, eager, arms, run, sc
     release()
     return out
-
-
-def profile_family_decode(arch, run, n_attn, out_dir):
-    """One profiler window of captured steady decode (a batch: its
-    prefill, then its decode steps): device time per decode step by
-    kernel class (matrix products — cuBLAS's nvjet/gemm kernels, the
-    expert products first among them —, the paged kernels, device-to-
-    device copies, the rest) and the busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    classes = {"products": 0.0, "paged": 0.0, "copies": 0.0, "rest": 0.0}
-    for e in prof.key_averages():
-        us = _device_us(e)
-        if us <= 0:
-            continue
-        key = e.key.lower()
-        if "paged_" in key:
-            classes["paged"] += us
-        elif any(x in key for x in ("nvjet", "gemm", "xmma", "cutlass",
-                                    "gemv")):
-            classes["products"] += us
-        elif "memcpy" in key:
-            classes["copies"] += us
-        else:
-            classes["rest"] += us
-    busy = sum(classes.values())
-    per = {k: round(v / steps / 1e3, 4) for k, v in classes.items()}
-    path = os.path.join(out_dir, f"profile_{arch}.txt")
-    with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=60))
-    log(f"profile {arch} steady decode: {steps} steps in {wall:.3f} s, "
-        f"device ms per step by class {json.dumps(per)}, busy share "
-        f"{busy / 1e6 / wall:.4f} ({n_attn} paged launches a step; table "
-        f"{path})")
 
 
 def family_equality(arch):
@@ -3455,7 +3157,7 @@ def family_equality(arch):
     release()
 
 
-def phase_families(kernel_rows, profile_dir=None):
+def phase_families(kernel_rows):
     import torch
     release()
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -3463,12 +3165,12 @@ def phase_families(kernel_rows, profile_dir=None):
     for arch, layers, serve_kw, traffic in FAMILIES:
         t0 = time.perf_counter()
         results[arch] = serve_family(arch, layers, serve_kw, traffic,
-                                     kernel_rows, profile_dir)
+                                     kernel_rows)
         walls[arch] = round(time.perf_counter() - t0, 1)
     for arch, layers, serve_kw, traffic in SERVED_ONLY:
         t0 = time.perf_counter()
         serve_family(arch, layers, serve_kw, traffic, kernel_rows,
-                     profile_dir, steady=False)
+                     steady=False)
         walls[arch] = round(time.perf_counter() - t0, 1)
     log("families table: " + json.dumps(results))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3559,19 +3261,12 @@ def cross_profile(run, steps_of):
     kernels; copies; the rest: the chunked attention's and the norms'
     elementwise and reduction kernels) and the six kernels that take the
     most device time, a step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        steps = steps_of(run())
-        torch.cuda.synchronize()
+    out, _, kernels = profiled(run)
+    steps = steps_of(out)
     classes = {"products": 0.0, "copies": 0.0, "rest": 0.0}
     top = []
-    for e in prof.key_averages():
-        us = _device_us(e)
-        if us <= 0:
-            continue
-        key = e.key.lower()
+    for name, us, _ in kernels:
+        key = name.lower()
         if any(x in key for x in ("nvjet", "gemm", "xmma", "cutlass",
                                   "gemv")):
             classes["products"] += us
@@ -3579,7 +3274,7 @@ def cross_profile(run, steps_of):
             classes["copies"] += us
         else:
             classes["rest"] += us
-        top.append((us, re.sub(r"\(.*$", "", e.key)[:70]))
+        top.append((us, re.sub(r"\(.*$", "", name)[:70]))
     top.sort(reverse=True)
     return ({k: round(v / steps / 1e3, 4) for k, v in classes.items()},
             [(n, round(us / steps / 1e3, 4)) for us, n in top[:6]])
@@ -4116,7 +3811,6 @@ def phase_obs(out_dir):
     scoring program through ``function(profile=N)``."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.core.events import (JsonlSink, RequestTraceProcessor,
@@ -4176,12 +3870,9 @@ def phase_obs(out_dir):
     per_step = []
     for _ in range(OBS_PROFILED_STEPS):
         n0 = len(viewer.events)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            sched.run(max_steps=1)
-            torch.cuda.synchronize()
-        paged_ms = sum(_device_us(e) for e in prof.key_averages()
-                       if "paged" in e.key) / 1e3
+        paged_ms = sum(us for key, us, _ in
+                       profiled(lambda: sched.run(max_steps=1))[2]
+                       if "paged" in key) / 1e3
         step = [e for e in viewer.events[n0:]
                 if type(e) is T.SegmentProfile
                 and "kernel.slot_decode_paged" in e.kernels]
@@ -5082,8 +4773,6 @@ def run_example(name, argv) -> str:
     import contextlib
     import importlib
     import io
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
     mod = importlib.import_module(f"examples.{name}")
     mod = importlib.reload(mod)
     buf = io.StringIO()
@@ -5135,10 +4824,6 @@ def phase_examples():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also time steady-state decode (kernel vs gather "
-                         "path) and profile it, the scoring programs and "
-                         "mamba2 serving into chiprun_out/")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run after the build "
                          "(a partial run: no result lines, for bring-up)")
@@ -5207,22 +4892,19 @@ def main() -> int:
             rows.extend(family_paged_rows() + [flash_d256_row()]
                         + flash_whisper_rows())
 
-        profile_dir = (os.path.join(HERE, "chiprun_out") if args.profile
-                       else None)
         phases = [
             ("kernels", kernel_rows),
             ("conv", lambda: phase_conv(rows)),
             ("serving", lambda: phase_serving(rows)),
             ("tokens", phase_tokens),
-            ("coexec-kernels", lambda: phase_coexec_kernels(rows,
-                                                            profile_dir)),
+            ("coexec-kernels", lambda: phase_coexec_kernels(rows)),
             ("coexec-equality", phase_coexec_equality),
             ("mamba2-serving", lambda: phase_mamba2_serving(rows)),
             ("mamba2-equality", phase_mamba2_equality),
             ("programs", phase_programs),
             ("train", phase_train),
             ("capture", phase_capture),
-            ("families", lambda: phase_families(rows, profile_dir)),
+            ("families", lambda: phase_families(rows)),
             ("cross", lambda: phase_cross(rows)),
             ("obs", lambda: phase_obs(os.path.join(HERE, "chiprun_out"))),
             ("persist", phase_persist),
@@ -5231,14 +4913,6 @@ def main() -> int:
             ("dryrun", phase_dryrun),
             ("examples", phase_examples),
         ]
-        if args.profile:
-            phases += [("profile", lambda: phase_profile(profile_dir)),
-                       ("mamba2-profile",
-                        lambda: phase_mamba2_profile(profile_dir)),
-                       ("train-profile",
-                        lambda: phase_train_profile(profile_dir)),
-                       ("launch-profile",
-                        lambda: phase_launch_profile(profile_dir))]
         if args.only:
             names = args.only.split(",")
             check(set(names) <= {n for n, _ in phases},

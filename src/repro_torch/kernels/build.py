@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels and bind them with ctypes.
+"""Build the hand-written CUDA kernels, bind them with ctypes and launch
+them.
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on
 first use, from the repo's sources only, by ``nvcc`` for ``sm_90a`` into
@@ -12,7 +13,12 @@ rebuilt and a built one is reused within a checkout.  :func:`build_all`
 starts one ``nvcc`` per source, all at once, and waits for them together;
 the first use of a source one model block shares with another
 (:data:`TOGETHER`) builds both so.
-Nothing here runs at import time: the CPU tests import every module.
+
+Every wrapper goes through :func:`entry` (a library symbol with the
+argument types its wrapper declares) and :func:`launch` (the call on the
+current stream of the tensors' device, a CUDA error raised by
+:func:`call`, the launch counted).  Nothing here runs at import time:
+the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -144,6 +150,37 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return done
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of kernel library ``name`` (built first if
+    needed), taking ``argtypes`` and returning an int (a cudaError_t).
+    Pointers and the stream are ``c_void_p`` there: a bare Python int
+    would be passed as a 32-bit int and cut the pointer."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def call(what: str, fn, *args) -> None:
+    """``fn(*args)``; raises, naming ``what``, on a nonzero return (a
+    cudaError_t)."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def launch(wrapper, fn, device, *args) -> None:
+    """``fn(*args, stream)`` on the current CUDA stream of ``device``, a
+    tensor among ``args`` passed as its data pointer; raises on a nonzero
+    return, else counts one launch of ``wrapper``'s kernel."""
+    import torch
+    call(f"{wrapper.__name__} kernel launch", fn,
+         *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+         torch.cuda.current_stream(device).cuda_stream)
+    count_launch(wrapper)
 
 
 def library(name: str) -> ctypes.CDLL:

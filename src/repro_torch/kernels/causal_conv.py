@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import entry, launch
 from repro_torch.kernels.ref import ref_causal_conv, ref_causal_conv_bwd
 
 NAME = "causal_conv"
@@ -45,30 +45,12 @@ MAX_K = 4                           # the kernels' largest template K
 TILE_ROWS = 64                      # rows a tile (csrc kRows)
 BWD_ROWS = 256                      # rows a gradient CTA (4 tiles)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_causal_conv
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p (a bare int would be cut),
-        # strides as 64-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_causal_conv_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+# the C entries' arguments (strides as 64-bit ints)
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
 
 
 def _check(x, w, b, window, what):
@@ -131,14 +113,6 @@ def _vec_ok(*ts) -> bool:
     return True
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def causal_conv(x, w, b=None, window=None):
     """x [B,S,dc] (channels at unit stride; any batch and row strides), w
     [dc,K], b [dc] or None, window [B,K-1,dc] or None (zeros) -> y
@@ -156,14 +130,9 @@ def causal_conv(x, w, b=None, window=None):
     b = None if b is None else b.contiguous()
     ts = [t for t in (x, window, y) if t is not None and t.numel()]
     sw = window.stride() if window is not None else (0, 0, 1)
-    err = _entry()(_ptr(x), w.data_ptr(), _ptr(b),
-                   _ptr(window) if K > 1 else None, y.data_ptr(),
-                   B, S, dc, K, x.stride(0), x.stride(1), sw[0], sw[1],
-                   _DTYPES[x.dtype], int(_vec_ok(*ts)), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"causal_conv kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(causal_conv)
+    launch(causal_conv, entry(NAME, "repro_causal_conv", _ARGS), x.device,
+           x, w, b, window if K > 1 else None, y, B, S, dc, K, x.stride(0),
+           x.stride(1), sw[0], sw[1], _DTYPES[x.dtype], int(_vec_ok(*ts)))
     return y
 
 
@@ -210,17 +179,11 @@ def causal_conv_bwd(x, w, b, window, dy, *, want_window: bool = False):
                        device=dev)
     ts = [t for t in (x, window, dy, dx, dwin) if t is not None and t.numel()]
     sw = window.stride() if window is not None else (0, 0, 1)
-    err = _bwd_entry()(
-        _ptr(x), w.data_ptr(), _ptr(b), _ptr(window) if K > 1 else None,
-        dy.data_ptr(), dx.data_ptr(), _ptr(dwin) if K > 1 else None,
-        part.data_ptr(), dw.data_ptr(), _ptr(db),
-        B, S, dc, K, x.stride(0), x.stride(1), sw[0], sw[1],
-        dy.stride(0), dy.stride(1), parts, _DTYPES[x.dtype],
-        int(_vec_ok(*ts)), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"causal_conv_bwd kernel launch failed: CUDA "
-                           f"error {err}")
-    count_launch(causal_conv_bwd)
+    launch(causal_conv_bwd, entry(NAME, "repro_causal_conv_bwd", _BWD_ARGS),
+           dev, x, w, b, window if K > 1 else None, dy, dx,
+           dwin if K > 1 else None, part, dw, db, B, S, dc, K, x.stride(0),
+           x.stride(1), sw[0], sw[1], dy.stride(0), dy.stride(1), parts,
+           _DTYPES[x.dtype], int(_vec_ok(*ts)))
     return dx, dw, db, dwin
 
 

@@ -34,23 +34,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch, head_dim_instance
+from repro_torch.kernels.build import entry, head_dim_instance, launch
 from repro_torch.kernels.ref import ref_attention
 
 NAME = "flash_attention"
 Q_TILE = 64                         # query rows per CTA (csrc kBQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_flash_attention
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p (a bare int would be cut)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _aligned(t):
@@ -101,14 +91,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if B * H * Sq == 0:
         return out
     q, k, v = (_aligned(t) for t in (q, k, v))
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, H, Hkv, Sq, Skv, D, int(bool(causal)), int(window),
-                   _DTYPES[q.dtype],
-                   torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    count_launch(flash_attention)
+    launch(flash_attention, entry(NAME, "repro_flash_attention", _ARGS),
+           q.device, q, k, v, out, B, H, Hkv, Sq, Skv, D, int(bool(causal)),
+           int(window), _DTYPES[q.dtype])
     return out
 
 

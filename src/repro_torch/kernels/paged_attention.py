@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch, head_dim_instance
+from repro_torch.kernels.build import entry, head_dim_instance, launch
 from repro_torch.kernels.ref import ref_paged_attention
 
 NAME = "paged_attention"
@@ -48,6 +48,7 @@ SMEM_LIMIT = 232448                 # an H100 CTA's shared memory (227 KB)
 SPLIT_TOKENS = 64                   # cache positions a split aims to cover
 MIN_CTAS = 2 * 132                  # two CTAs for each of the H100's SMs
 _WARPS = 4                          # csrc kWarps
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def padded_group(G: int, exact_dim: bool = True) -> int:
@@ -83,18 +84,6 @@ def split_smem_bytes(D: int, G: int, bs: int, bps: int, itemsize: int):
     the split, its scores, the cross-warp sums and its table entries."""
     tok = bps * bs
     return 2 * tok * D * itemsize + 4 * (G * tok + _WARPS * G * D) + 4 * bps
-
-
-def _entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_paged_attention
-    if fn.argtypes is None:
-        # every pointer and the stream as c_void_p: a bare Python int
-        # would be passed as a 32-bit int and cut the pointer
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(q, kp, vp, bt, valid, window):
@@ -152,16 +141,9 @@ def paged_attention(q, kp, vp, bt, valid, *, window: int = 0):
     # (rows of the instantiated head dim)
     part = (torch.empty(B * Hkv * nsplit * G * (2 + DI), dtype=torch.float32,
                         device=q.device) if nsplit > 1 else None)
-    err = _entry()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                   bt.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                   None if part is None else part.data_ptr(),
-                   B, Hkv, G, D, bs, nbps, bps, nsplit, int(window),
-                   _DTYPES[q.dtype],
-                   torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    count_launch(paged_attention)
+    launch(paged_attention, entry(NAME, "repro_paged_attention", _ARGS),
+           q.device, q, kp, vp, bt, valid, out, part, B, Hkv, G, D, bs,
+           nbps, bps, nsplit, int(window), _DTYPES[q.dtype])
     return out
 
 

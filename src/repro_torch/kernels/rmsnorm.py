@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import entry, launch
 from repro_torch.kernels.ref import ref_rmsnorm
 
 NAME = "rmsnorm"
@@ -38,18 +38,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_THREADS = 256                  # threads a row, generic kernel
 MAX_REG_D = 8192                    # widest row the register kernel takes
 _ROW_THREADS = 64                   # threads a row, register kernel
-
-
-def _entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_rmsnorm
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p (a bare int would be cut)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def launch_plan(d: int, x_el: int, aligned: bool):
@@ -77,16 +67,6 @@ def launch_plan(d: int, x_el: int, aligned: bool):
     return vec, min(_MAX_THREADS, max(32, -(-nv // 32) * 32)), 0
 
 
-def _launch(x, g, out, rows, d, eps, plan):
-    vec, threads, packs = plan
-    err = _entry()(x.data_ptr(), g.data_ptr(), out.data_ptr(), rows, d,
-                   float(eps), _DTYPES[x.dtype], _DTYPES[g.dtype], vec,
-                   threads, packs,
-                   torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
-
-
 def rmsnorm(x, g, *, eps: float = 1e-6):
     """x: [..., d]; g: [d].  Returns x's shape and dtype."""
     if x.dim() < 1 or g.dim() != 1 or g.shape[0] != x.shape[-1]:
@@ -110,9 +90,10 @@ def rmsnorm(x, g, *, eps: float = 1e-6):
     x = x.contiguous()
     g = g.contiguous()
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, g))
-    _launch(x, g, out, rows, d, eps,
-            launch_plan(d, x.element_size(), aligned))
-    count_launch(rmsnorm)
+    vec, threads, packs = launch_plan(d, x.element_size(), aligned)
+    launch(rmsnorm, entry(NAME, "repro_rmsnorm", _ARGS), x.device, x, g,
+           out, rows, d, float(eps), _DTYPES[x.dtype], _DTYPES[g.dtype], vec,
+           threads, packs)
     return out
 
 

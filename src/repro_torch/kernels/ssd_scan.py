@@ -57,7 +57,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import call, entry, launch
 from repro_torch.kernels.ref import ref_ssd, ref_ssd_bwd
 
 NAME = "ssd_scan"
@@ -67,39 +67,12 @@ MAX_STATE_BWD = 128                 # largest N the backward's plan takes
 CHUNK = 64                          # tokens a chunk (csrc kQ)
 _TARGET_CTAS = 264                  # CTAs the head groups aim for (2 a SM)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_ssd_scan
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p (a bare int would be cut),
-        # strides as 64-bit ints
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_ssd_scan_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 13 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _occupancy_entry():
-    from repro_torch.kernels.build import library
-    fn = library(NAME).repro_ssd_grad_occupancy
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+# the C entries' arguments (strides as 64-bit ints)
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+         + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 13 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
 
 
 def grad_occupancy(N: int, P: int, dtype) -> dict:
@@ -109,10 +82,10 @@ def grad_occupancy(N: int, P: int, dtype) -> dict:
     local (spilled) bytes a thread, threads a CTA.  Builds the kernels;
     needs a CUDA device."""
     out = (ctypes.c_int * 5)()
-    err = _occupancy_entry()(N, P, _DTYPES[dtype], ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"ssd_grad occupancy query failed: CUDA error "
-                           f"{err}")
+    call("ssd_grad occupancy query",
+         entry(NAME, "repro_ssd_grad_occupancy",
+               [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+         N, P, _DTYPES[dtype], ctypes.addressof(out))
     return dict(zip(("smem_bytes", "ctas_per_sm", "registers", "threads",
                      "local_bytes"), out))
 
@@ -251,20 +224,13 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
         decay = end
     x, Bm, Cm = (_last_contiguous(t) for t in (x, Bm, Cm))
     A = A.contiguous()
-    err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                   Cm.data_ptr(), y.data_ptr(),
-                   h_final.data_ptr() if return_final else None,
-                   states, decay, hsplit,
-                   B, S, H, P, N,
-                   x.stride(0), x.stride(1), x.stride(2),
-                   dt.stride(0), dt.stride(1), dt.stride(2),
-                   Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-                   _DTYPES[x.dtype], _DTYPES[dt.dtype], hg,
-                   int(_vec_ok(x, Bm, Cm, N)),
-                   torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    count_launch(ssd_scan)
+    launch(ssd_scan, entry(NAME, "repro_ssd_scan", _ARGS), dev,
+           x, dt, A, Bm, Cm, y, h_final, states, decay, hsplit,
+           B, S, H, P, N, x.stride(0), x.stride(1), x.stride(2),
+           dt.stride(0), dt.stride(1), dt.stride(2),
+           Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+           _DTYPES[x.dtype], _DTYPES[dt.dtype], hg,
+           int(_vec_ok(x, Bm, Cm, N)))
     return (y, h_final) if return_final else y
 
 
@@ -333,27 +299,17 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh_final=None):
     parts = bwd_scratch(B, S, H, P, N)
     scratch = torch.empty(sum(_align(n) for _, n in parts),
                           dtype=torch.uint8, device=dev)
-    ptr, at = {}, scratch.data_ptr()
-    for name, n in parts:
-        ptr[name] = at if n else None
+    ptrs, at = [], scratch.data_ptr()       # in the entry's order
+    for _, n in parts:
+        ptrs.append(at if n else None)
         at += _align(n)
-    err = _bwd_entry()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), ptr["states"], ptr["decay"], ptr["gs"], ptr["gdecay"],
-        ptr["dBp"], ptr["dCp"], ptr["dAp"],
-        B, S, H, P, N,
-        x.stride(0), x.stride(1), x.stride(2),
-        dt.stride(0), dt.stride(1), dt.stride(2),
-        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-        dy.stride(0), dy.stride(1), dy.stride(2),
-        _DTYPES[x.dtype], hg, int(_vec_ok(x, Bm, Cm, N, dy)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(ssd_scan_bwd)
+    launch(ssd_scan_bwd, entry(NAME, "repro_ssd_scan_bwd", _BWD_ARGS), dev,
+           x, dt, A, Bm, Cm, dy, dh, dx, ddt, dA, dB, dC, *ptrs,
+           B, S, H, P, N, x.stride(0), x.stride(1), x.stride(2),
+           dt.stride(0), dt.stride(1), dt.stride(2),
+           Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+           dy.stride(0), dy.stride(1), dy.stride(2),
+           _DTYPES[x.dtype], hg, int(_vec_ok(x, Bm, Cm, N, dy)))
     return dx, ddt.to(dt_dtype), dA, dB, dC
 
 

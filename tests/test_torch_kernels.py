@@ -265,6 +265,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def test_launch_raises_a_cuda_error_and_counts_only_a_launch(monkeypatch):
+    """``build.launch`` calls the entry with each tensor as its data
+    pointer and the current stream last; a nonzero return raises, naming
+    the kernel and the code, and counts nothing; a zero return counts one
+    launch, into the open record too."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import build
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=77))
+
+    def fake_kernel():
+        pass
+    fake_kernel.launches = 0
+    calls, codes = [], [700, 0]
+
+    def entry(*args):
+        calls.append(args)
+        return codes[len(calls) - 1]
+    x = torch.zeros(4)
+    with build.recording_launches() as rec:
+        with pytest.raises(RuntimeError, match="^fake_kernel kernel launch "
+                                               "failed: CUDA error 700$"):
+            build.launch(fake_kernel, entry, x.device, x, None, 3)
+        assert fake_kernel.launches == 0 and rec == {}
+        build.launch(fake_kernel, entry, x.device, x, None, 3)
+    assert fake_kernel.launches == 1 and rec == {fake_kernel: 1}
+    assert calls == [(x.data_ptr(), None, 3, 77)] * 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain_version(dtype, card):
@@ -304,14 +333,20 @@ ptxas info    : Used 103 registers, used 1 barriers
 """
 
 
-def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
-    """chip_smoke.py logs each kernel's registers and spills from nvcc's
-    ``-Xptxas -v`` output, with the mangled names shortened."""
+def _chip_smoke():
+    """chip_smoke.py loaded by its path, as a module."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_build_log():
+    """chip_smoke.py logs each kernel's registers and spills from nvcc's
+    ``-Xptxas -v`` output, with the mangled names shortened."""
+    cs = _chip_smoke()
     assert cs.ptxas_entries(PTXAS_LOG) == [
         ("paged_split_kernel<bf16,128,4>", 64, 0),
         ("paged_combine_kernel<bf16>", 32, 40),
@@ -331,11 +366,7 @@ def test_chip_smoke_names_the_redesigned_kernels():
     kernels' build (sm_90a): template arguments in any order of types and
     integers, a repeated type as a substitution, and a kernel that is not
     a template."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(root, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     names = [
         (RMS_NS + "18rmsnorm_reg_kernelI13__nv_bfloat16fLi4EEEvPKT_PKT0_"
          "PS2_if", "rmsnorm_reg_kernel<bf16,f32,4>"),
@@ -360,3 +391,19 @@ def test_chip_smoke_names_the_redesigned_kernels():
     for mangled, want in names:
         assert cs._short_kernel(mangled) == want
 
+
+def test_chip_smoke_holds_kernels_to_the_benchmarks_peaks_and_bound():
+    """chip_smoke.py's peaks are portbench's, and its paged bound is the
+    one the ledger's ``kernel.paged_attention_roofline`` divides by."""
+    cs = _chip_smoke()
+    from portbench.roofline import bounds, peaks
+    assert cs.HBM_BYTES_PER_S == peaks.HBM_BYTES_PER_S
+    assert cs.OPS_PER_S is peaks.OPS_PER_S
+    for dtype, el, window in ((torch.bfloat16, 2, 0),
+                              (torch.float32, 4, 64)):
+        q = torch.zeros(2, 1, 16, 128, dtype=dtype)
+        kp = torch.zeros(20, 16, 4, 128, dtype=dtype)
+        valid = torch.tensor([100, 20], dtype=torch.int32)
+        assert cs.paged_bound_ms(q, kp, valid, 16, window) == \
+            bounds.paged_bound_ms([100, 20], 16, 4, 128, 16, el=el,
+                                  window=window, dtype=str(dtype)[6:])
